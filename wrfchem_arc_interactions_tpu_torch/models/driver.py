@@ -1,0 +1,85 @@
+"""Time-integration driver (port of the JAX package's `models/driver.py`,
+the single-domain run loop).
+
+A `Simulation` owns the steppers, the step clock and the radt/chemdt alarm
+cadence.  The reference compiles three executables — "main" every step,
+"rad" and "chem" on their alarms; this slice ports "main" (physics pre ->
+dynamics -> physics post).  The alarms are kept, so that the radiation and
+chem steppers of the next slices plug in; a configuration that would ring
+them is refused before the first step (`utils.support.check_config`).
+History, restart, tslist and nesting come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from wrfchem_arc_interactions_tpu_torch.config import Config
+from wrfchem_arc_interactions_tpu_torch.dycore.solve import step as dyn_step
+from wrfchem_arc_interactions_tpu_torch.grid import Grid
+from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
+from wrfchem_arc_interactions_tpu_torch.physics.driver import post_dynamics, pre_dynamics
+from wrfchem_arc_interactions_tpu_torch.registry.state import State
+from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
+from wrfchem_arc_interactions_tpu_torch.utils.support import (
+    SLICE_RAD, check_config, check_grid,
+)
+
+
+class Simulation:
+    def __init__(self, cfg: Config, grid: Grid, state: State,
+                 device: DeviceLike = None):
+        """Run `cfg` from (grid, state) on `device` (default ``cuda``; raises
+        if there is none and the CPU was not asked for).  The grid and state
+        are moved there."""
+        check_config(cfg)
+        check_grid(grid)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.grid = grid.to(self.device)
+        self.state = {k: v.to(self.device) for k, v in state.items()}
+        self.dt = cfg.time_control.dt
+        self.time_s = 0.0
+        self.step_idx = 0
+        self.hx = HaloOps(bc_x=cfg.dynamics.bc_x, bc_y=cfg.dynamics.bc_y)
+
+        # alarm cadences in steps (0 = never)
+        ph = cfg.physics
+        self.rad_every = max(1, round(ph.radt_s / self.dt)) \
+            if ph.ra_sw_physics.value != "none" or ph.ra_lw_physics.value != "none" else 0
+        self.chem_every = max(1, round(cfg.chem.chemdt_s / self.dt)) \
+            if cfg.chem.chem_opt.value != "none" else 0
+        self._steppers: Dict[str, Callable] = {}
+
+    def _stepper(self, key: str) -> Callable:
+        """The (state, grid, time_s) -> state function of one executable."""
+        if key not in self._steppers:
+            if key != "main":
+                raise NotImplementedError(f"the {key!r} stepper comes with {SLICE_RAD}")
+            cfg, hx, dt = self.cfg, self.hx, self.dt
+
+            def main(s, g, t_s):
+                s, tend = pre_dynamics(s, g, cfg, hx, False)
+                s = dyn_step(s, g, cfg, hx, dt, tend)
+                return post_dynamics(s, g, cfg, dt, False)
+
+            self._steppers[key] = main
+        return self._steppers[key]
+
+    def sync(self):
+        """Block until every queued step has executed (window barrier)."""
+        sync(self.device)
+
+    def advance(self, n_steps: int):
+        """Advance n steps.  On the GPU the steps are queued asynchronously;
+        close a timed window with `sync()`."""
+        for _ in range(n_steps):
+            do_rad = self.rad_every > 0 and self.step_idx % self.rad_every == 0
+            do_chem = self.chem_every > 0 and self.step_idx % self.chem_every == 0
+            if do_chem:
+                self.state = self._stepper("chem")(self.state, self.grid, self.time_s)
+            if do_rad:
+                self.state = self._stepper("rad")(self.state, self.grid, self.time_s)
+            self.state = self._stepper("main")(self.state, self.grid, self.time_s)
+            self.step_idx += 1
+            self.time_s += self.dt

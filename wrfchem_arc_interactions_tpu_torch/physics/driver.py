@@ -1,0 +1,49 @@
+"""Physics orchestration around the dynamics step (port of the JAX
+package's `physics/driver.py`, the subset this slice runs).
+
+- `pre_dynamics`: tendencies computed once per dt and held through the RK
+  stages — here the subgrid diffusion.  Radiation, surface layer, PBL,
+  cumulus and stochastic physics come with later slices
+  (`utils.support.check_config` refuses them).
+- `post_dynamics`: microphysics on the post-advection state (Kessler).
+  The chem driver on its chemdt alarm comes with slice 2.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from wrfchem_arc_interactions_tpu_torch.config import Config
+from wrfchem_arc_interactions_tpu_torch.config.namelist import MPScheme
+from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import diagnose
+from wrfchem_arc_interactions_tpu_torch.dycore.diffusion import diffusion_tendencies
+from wrfchem_arc_interactions_tpu_torch.grid import Grid
+from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
+from wrfchem_arc_interactions_tpu_torch.physics.microphysics.kessler import kessler
+from wrfchem_arc_interactions_tpu_torch.registry.state import State, advected_names
+from wrfchem_arc_interactions_tpu_torch.utils.support import SLICE_RAD
+
+
+def pre_dynamics(state: State, grid: Grid, cfg: Config, hx: HaloOps,
+                 do_radiation: bool) -> Tuple[State, Dict[str, torch.Tensor]]:
+    if do_radiation:
+        raise NotImplementedError(f"radiation comes with {SLICE_RAD}")
+    tend: Dict[str, torch.Tensor] = {}
+    state = dict(state)
+    if cfg.dynamics.diff_opt.value != "none":
+        d = diffusion_tendencies(state, grid, cfg, hx, advected_names(cfg))
+        for k, v in d.items():
+            tend[k] = tend.get(k, 0.0) + v
+    return state, tend
+
+
+def post_dynamics(state: State, grid: Grid, cfg: Config, dt: float,
+                  do_chem: bool) -> State:
+    if do_chem:
+        raise NotImplementedError(f"the chem driver comes with {SLICE_RAD}")
+    if cfg.physics.mp_physics == MPScheme.KESSLER:
+        diag = diagnose(state, grid, cfg.moist_species())
+        state = kessler(state, diag, grid, dt)
+    return state
