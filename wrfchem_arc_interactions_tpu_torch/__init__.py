@@ -11,10 +11,14 @@ tensors.  The entry points (`models.ideal.make_case`,
 `models.driver.Simulation`) run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit device they raise.
 
-The port so far covers the "main" executable of the config-3 step (dycore +
-diffusion + Kessler) with radiation and chemistry off; the fused 5th/3rd
-order scalar advection tendency runs as a hand-written CUDA kernel
-(`csrc/advect_scalar_5_3.cu`, wrapper `ops/adv_kernel.py`).
+The port so far covers BASELINE config 3 whole: the "main" step (dycore +
+diffusion + Kessler), RRTMG SW/LW on the radt alarm, and MOSAIC 4-bin
+chemistry with fixed bins (dry deposition and aerosol optics, fed back to
+radiation) on the chemdt alarm.  Three hand-written CUDA kernels carry it
+(`csrc/`, wrappers in `ops/`): the fused 5th/3rd-order scalar advection
+tendency (`adv_kernel.py`), the fused multi-tracer RK-stage update
+(`tracers_kernel.py`) and the fast-Mie Chebyshev evaluator
+(`mie_kernel.py`).
 """
 
 __version__ = "0.1.0"

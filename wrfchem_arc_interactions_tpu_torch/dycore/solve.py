@@ -9,15 +9,19 @@
       scalar advection (stage winds; final stage: time-averaged acoustic
       mass fluxes + PD limiter)
 
-The reference has three scalar paths (unrolled loop, ``lax.scan``, one
-stacked pass) that compute the same thing; eager PyTorch gains nothing from
-the latter two, so the port runs the per-tracer loop for all of them.
+The reference has three scalar paths that compute the same thing: an
+unrolled per-tracer loop below ``scan_tracer_min`` scalars, and a
+``lax.scan`` (or one stacked pass) over the stacked scalars at or above it.
+The port keeps the split.  Below it, the per-tracer loop; at or above it
+(config 3 advects 47 scalars on every stage), the scalars stay stacked as
+one (nt, nz, ny, nx) tensor for the whole step and each stage's update is
+one call of the fused multi-tracer kernel (`ops.tracers_kernel.
+advect_tracers`), the limiter and clip included on the final stage.
 
-The tendency of theta on every stage, and of each moist scalar on the
+The tendency of theta on every stage, and of each loop scalar on the
 stages where no limiter runs, is the fused 5th/3rd-order advection kernel
 (`ops.adv_kernel.advect_scalar_5_3`) whenever the configured orders are
-(5, 3); other orders take `advection.advect_scalar`.  Both compute the same
-function.
+(5, 3); other orders take `advection.advect_scalar` and the loop.
 
 Tensors of the incoming state are never written: new stage fields are new
 tensors, and the few in-place writes below go into tensors computed here.
@@ -38,6 +42,7 @@ from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import ddz_center, di
 from wrfchem_arc_interactions_tpu_torch.dycore.small_step import acoustic_loop
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.ops.adv_kernel import advect_scalar_5_3
+from wrfchem_arc_interactions_tpu_torch.ops.tracers_kernel import advect_tracers
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import avg_z_centers_to_faces, win
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.registry.state import State, advected_names
@@ -99,8 +104,9 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
     pt = phys_tend or {}
 
     # Chem-scalar stage split (solve_em.F advects chem/tracer arrays only on
-    # the final RK3 stage).  This slice carries no chem tracers, so the
-    # final-only set is empty; the split stays so the next slice plugs in.
+    # the final RK3 stage).  A scalar with a physics tendency rides every
+    # stage; with diffusion on (config 3) every scalar has one, so the
+    # final-only set is empty.
     stage_set = set(moist) | {"tke", "qke"} | set(pt)
     if dyn.chem_adv_final_only:
         final_scalars = tuple(q for q in scalars if q not in stage_set)
@@ -108,12 +114,18 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         final_scalars = ()
     if final_scalars:
         raise NotImplementedError(
-            f"final-stage-only tracers {final_scalars} come with slice 3")
+            f"final-stage-only tracers {final_scalars} (no physics tendency) are "
+            "not ported yet; they come with a later slice (ROADMAP Queue 1 item 6)")
     stage_scalars = tuple(q for q in scalars if q not in final_scalars)
 
     h_m, v_m = dyn.h_mom_adv_order.value, dyn.v_mom_adv_order.value
     h_s, v_s = dyn.h_sca_adv_order.value, dyn.v_sca_adv_order.value
     fused_53 = (h_s, v_s) == (5, 3)
+
+    # ---- scalar batching decision (the reference's scan/stack gates) -----
+    batched = fused_53 and len(stage_scalars) >= min(dyn.scan_tracer_min,
+                                                     dyn.stack_tracer_min)
+    loop_names = () if batched else stage_scalars
 
     def scalar_tend(q_pad, ru, rv, ww_):
         """-div F of an uncoupled scalar, no limiter."""
@@ -137,7 +149,17 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         "mu": state["mu"],
         "ph": state["ph"],
     }
-    phi_old = {name: mu_full_0[None] * state[name] for name in stage_scalars}
+    phi_old = {name: mu_full_0[None] * state[name] for name in loop_names}
+    if batched:
+        sc_stack = torch.stack([state[q] for q in stage_scalars])
+        phi_stack = mu_full_0[None, None] * sc_stack
+        moist_idx = {q: i for i, q in enumerate(stage_scalars) if q in moist}
+        # physics tendencies are stage-invariant: stacked once per step
+        pt_stack = None
+        if any(q in pt for q in stage_scalars):
+            zeros = torch.zeros_like(state["t"])
+            pt_stack = torch.stack([torch.broadcast_to(pt[q], zeros.shape)
+                                    if q in pt else zeros for q in stage_scalars])
 
     stage_state = state
     stage_dts = [dt / 3.0, dt / 2.0, dt]
@@ -157,7 +179,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             "ph": stage_state["ph"], "t": stage_state["t"],
             "mu": mu_full, "p": diag.p_pert, "al": diag.alpha_d, "eps": diag.eps_ratio,
         }
-        for q in stage_scalars:
+        for q in loop_names:
             fields[q] = stage_state[q]
         gA = hx.pad_many(fields, 3)
 
@@ -263,7 +285,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         new["mu"] = mu_new
         new["ph"] = cplref["ph"] + pp_out["ph"]
 
-        # ---- scalars (per-tracer loop) ------------------------------------
+        # ---- scalars --------------------------------------------------------
         final = istage == 2
         if final:
             gF = hx.pad_many({"ru": avg_flux["ru"], "rv": avg_flux["rv"]}, 3)
@@ -272,7 +294,18 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             ru_s, rv_s, ww_s = ru_pad, rv_pad, ww
         # the limiter is PD here: check_config refuses the monotonic one
         limited = final and dyn.moist_adv_opt != AdvLimiter.NONE
-        for q in stage_scalars:
+        if batched:
+            sc_stack = advect_tracers(hx.pad(sc_stack, 3), phi_stack, ru_s, rv_s,
+                                      ww_s, mu_full, mu_full_new, grid, hx, dts,
+                                      pt=pt_stack, pd=limited, clip=limited)
+            # diagnose() reads the moist subset every stage; the others
+            # unstack once, at the end
+            for q, i in moist_idx.items():
+                new[q] = sc_stack[i]
+            if final:
+                for i, q in enumerate(stage_scalars):
+                    new[q] = sc_stack[i]
+        for q in loop_names:
             q_pad = gA[q]
             if limited:
                 fx, fy, fz = adv.scalar_fluxes(q_pad, ru_s, rv_s, ww_s, h_s, v_s)

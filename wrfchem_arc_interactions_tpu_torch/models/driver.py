@@ -3,27 +3,30 @@ the single-domain run loop).
 
 A `Simulation` owns the steppers, the step clock and the radt/chemdt alarm
 cadence.  The reference compiles three executables — "main" every step,
-"rad" and "chem" on their alarms; this slice ports "main" (physics pre ->
-dynamics -> physics post).  The alarms are kept, so that the radiation and
-chem steppers of the next slices plug in; a configuration that would ring
-them is refused before the first step (`utils.support.check_config`).
-History, restart, tslist and nesting come with later slices.
+"rad" and "chem" on their alarms — and the port keeps the same three
+steppers in the same alarm order within a step: chem, then rad, then main.
+Model time reaches the solar ephemeris and the McICA seed as float32, as
+the reference's ``t_now = jnp.float32(time_s)`` does.  History, restart,
+tslist and nesting come with later slices.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
+
+from wrfchem_arc_interactions_tpu_torch.chem.driver import chem_driver
 from wrfchem_arc_interactions_tpu_torch.config import Config
 from wrfchem_arc_interactions_tpu_torch.dycore.solve import step as dyn_step
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.physics.driver import post_dynamics, pre_dynamics
+from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import radiation_driver
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
+from wrfchem_arc_interactions_tpu_torch.utils.clock import ModelClock
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
-from wrfchem_arc_interactions_tpu_torch.utils.support import (
-    SLICE_RAD, check_config, check_grid,
-)
+from wrfchem_arc_interactions_tpu_torch.utils.support import check_config, check_grid
 
 
 class Simulation:
@@ -42,6 +45,10 @@ class Simulation:
         self.time_s = 0.0
         self.step_idx = 0
         self.hx = HaloOps(bc_x=cfg.dynamics.bc_x, bc_y=cfg.dynamics.bc_y)
+        # calendar clock for the solar geometry (utils/clock.py)
+        self.clock = ModelClock(cfg.time_control.start_date)
+        self._solar_off = self.clock.utc_offset_s()
+        self._julian = self.clock.julian_day()
 
         # alarm cadences in steps (0 = never)
         ph = cfg.physics
@@ -51,19 +58,32 @@ class Simulation:
             if cfg.chem.chem_opt.value != "none" else 0
         self._steppers: Dict[str, Callable] = {}
 
+    def _solar_time(self, t_s: np.float32):
+        """(UTC seconds, julian day) of model time `t_s`, in float32 in the
+        reference's order: the julian day advances with model time."""
+        ts = t_s + np.float32(self._solar_off)
+        return ts, np.float32(self._julian) + ts / np.float32(86400.0)
+
     def _stepper(self, key: str) -> Callable:
-        """The (state, grid, time_s) -> state function of one executable."""
+        """The (state, grid, t_s) -> state function of one executable;
+        `t_s` is the model time as a numpy float32."""
         if key not in self._steppers:
-            if key != "main":
-                raise NotImplementedError(f"the {key!r} stepper comes with {SLICE_RAD}")
             cfg, hx, dt = self.cfg, self.hx, self.dt
-
-            def main(s, g, t_s):
-                s, tend = pre_dynamics(s, g, cfg, hx, False)
-                s = dyn_step(s, g, cfg, hx, dt, tend)
-                return post_dynamics(s, g, cfg, dt, False)
-
-            self._steppers[key] = main
+            if key == "main":
+                def fn(s, g, t_s):
+                    s, tend = pre_dynamics(s, g, cfg, hx)
+                    s = dyn_step(s, g, cfg, hx, dt, tend)
+                    return post_dynamics(s, g, cfg, dt)
+            elif key == "rad":
+                def fn(s, g, t_s):
+                    ts, jd = self._solar_time(t_s)
+                    return radiation_driver(s, g, cfg, ts, julian_day=jd)
+            elif key == "chem":
+                def fn(s, g, t_s):
+                    return chem_driver(s, g, cfg, cfg.chem.chemdt_s)
+            else:
+                raise ValueError(key)
+            self._steppers[key] = fn
         return self._steppers[key]
 
     def sync(self):
@@ -76,10 +96,11 @@ class Simulation:
         for _ in range(n_steps):
             do_rad = self.rad_every > 0 and self.step_idx % self.rad_every == 0
             do_chem = self.chem_every > 0 and self.step_idx % self.chem_every == 0
+            t_now = np.float32(self.time_s)
             if do_chem:
-                self.state = self._stepper("chem")(self.state, self.grid, self.time_s)
+                self.state = self._stepper("chem")(self.state, self.grid, t_now)
             if do_rad:
-                self.state = self._stepper("rad")(self.state, self.grid, self.time_s)
-            self.state = self._stepper("main")(self.state, self.grid, self.time_s)
+                self.state = self._stepper("rad")(self.state, self.grid, t_now)
+            self.state = self._stepper("main")(self.state, self.grid, t_now)
             self.step_idx += 1
             self.time_s += self.dt

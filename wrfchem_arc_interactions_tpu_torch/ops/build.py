@@ -26,7 +26,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"advect_scalar_5_3": "advect_scalar_5_3.cu"}
+SOURCES = {"advect_scalar_5_3": "advect_scalar_5_3.cu",
+           "mie_cheb_eval": "mie_cheb_eval.cu",
+           "advect_tracers": "advect_tracers.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")

@@ -1,8 +1,10 @@
 """What the port carries so far, and which slice brings the rest.
 
-The port goes slice by slice (ROADMAP.md, Queue 1).  Slice 1 is the
-"main" executable of BASELINE config 3 with radiation and chemistry off:
-dycore + Smagorinsky diffusion + Kessler, single device, ideal flat grid.
+The port goes slice by slice (ROADMAP.md, Queue 1).  Slices 1 and 2 carry
+BASELINE config 3 whole: dycore + Smagorinsky diffusion + Kessler, RRTMG
+SW/LW on the radt alarm, and MOSAIC 4-bin chemistry with fixed bins (dry
+deposition and aerosol optics, fed back to radiation with
+``aer_ra_feedback``) on the chemdt alarm; single device, ideal flat grid.
 Every option outside it raises `NotImplementedError` naming the slice that
 brings it, so that nothing runs silently with a piece missing.
 """
@@ -24,9 +26,8 @@ from wrfchem_arc_interactions_tpu_torch.config.namelist import (
     SFSurface,
 )
 
-SLICE_RAD = "slice 2 (config 3 radiation + aerosol optics + the Mie kernel)"
-SLICE_CHEM = "slice 3 (config 4: Morrison, MOSAIC, CBM-Z with the ROS2 and " \
-             "multi-tracer kernels)"
+SLICE_CHEM = "slice 3 (config 4: Morrison, activation, MOSAIC aerosol " \
+             "dynamics, CBM-Z with the ROS2 kernel; ROADMAP Queue 1 item 6)"
 SLICE_PHYS = "a later slice (ROADMAP Queue 1 item 7, remaining physics)"
 SLICE_REAL = "a later slice (ROADMAP Queue 1 item 9, real data and nesting)"
 SLICE_MESH = "a later slice (ROADMAP Queue 1 item 10, multi-GPU decomposition)"
@@ -36,14 +37,30 @@ def _unported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; it comes with {where}")
 
 
+def unported_chem_stages(cfg: Config):
+    """The chem-driver stages that `cfg` switches on and the port does not
+    carry yet (all of them come with slice 3).  Gas chemistry is not among
+    them: it runs only with a CBM-Z package, refused as a whole."""
+    ch = cfg.chem
+    if ch.chem_opt == ChemOpt.NONE:
+        return []
+    switches = (("emissions (emiss_opt)", ch.emiss_opt),
+                ("cloud chemistry (cldchem_onoff)", ch.cldchem_onoff),
+                ("aerosol dynamics (aerchem_onoff)", ch.aerchem_onoff),
+                ("wet scavenging (wetscav_onoff)", ch.wetscav_onoff))
+    return [name for name, on in switches if on]
+
+
 def check_config(cfg: Config) -> None:
-    """Raise `NotImplementedError` for any option this slice does not port."""
+    """Raise `NotImplementedError` for any option the port does not carry."""
     ph, dyn, ch = cfg.physics, cfg.dynamics, cfg.chem
-    if ph.ra_sw_physics != RAScheme.NONE or ph.ra_lw_physics != RAScheme.NONE:
-        raise _unported("radiation (ra_sw/ra_lw_physics)", SLICE_RAD)
-    if ch.chem_opt != ChemOpt.NONE:
-        where = SLICE_RAD if ch.chem_opt == ChemOpt.MOSAIC_4BIN else SLICE_CHEM
-        raise _unported(f"chemistry (chem_opt={ch.chem_opt.value})", where)
+    if RAScheme.SIMPLE in (ph.ra_sw_physics, ph.ra_lw_physics):
+        raise _unported("the simple radiation scheme (ra_*_physics=simple)", SLICE_PHYS)
+    if ch.chem_opt not in (ChemOpt.NONE, ChemOpt.MOSAIC_4BIN):
+        raise _unported(f"chemistry (chem_opt={ch.chem_opt.value})", SLICE_CHEM)
+    stages = unported_chem_stages(cfg)
+    if stages:
+        raise _unported(f"the chem stages {stages}", SLICE_CHEM)
     if ph.mp_physics == MPScheme.MORRISON2 or ph.progn:
         raise _unported("Morrison microphysics", SLICE_CHEM)
     if ph.mp_physics == MPScheme.WSM6:
