@@ -5,11 +5,15 @@
 Phases (each raises on failure, and the script then exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel from ``wrfchem_arc_interactions_tpu_torch/csrc``
-   (one nvcc per source, in parallel);
+2. build every kernel: the three sources under
+   ``wrfchem_arc_interactions_tpu_torch/csrc`` and the ROS2 gas-chemistry
+   kernel, whose source ``ops/ros2_kernel.py`` generates from the CBM-Z
+   tables into ``build/`` (one nvcc per source, all at once);
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, timed with CUDA events, beside its
-   bound;
+   at the shapes the main paths give it (the multi-tracer kernel at config
+   3's 47 and config 4's 107 scalars; the ROS2 kernel against its plain
+   version at config 4's 500,000 cells and at 4,133 cells), timed with CUDA
+   events, beside its bound;
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -26,6 +30,18 @@ Phases (each raises on failure, and the script then exits non-zero):
 6. a short profile of two config-3 steps and one chem call (device time by
    kernel, device busy share) and the time of one Thomas solve;
 7. cross-check: 3 steps of a small config 3 starting at noon UTC (both
+   alarms every step) on the card against the CPU;
+8. config-4 slice phase: BASELINE config 4 exactly as bench.py's ``_cfg4``
+   builds it (Morrison two-moment with progn, CBM-Z + MOSAIC 4-bin with the
+   default stage list every 60 s, RRTMG every 600 s, aer_ra_feedback) with
+   bench.py's aerosol and gas seed: 2 warm-up steps, then one 100-step
+   window closed by one sync — 10 chem calls and 1 rad call.  Checks finite
+   fields, every chem field >= 0, O3 within 0.02-0.06 ppmv of its 0.04 seed,
+   droplet number in at least 90% of the cells with cloud water,
+   tau_aer_sw > 0, and the
+   exact launch counts of all four kernels; then the synchronised phase
+   times and a profile of one chem call;
+9. config-4 cross-check: 3 steps of a small config 4 from noon UTC (both
    alarms every step) on the card against the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -52,7 +68,10 @@ REPLACES = {
     "advect_scalar_5_3": "wrfchem_arc_interactions_tpu/ops/pallas_adv.py:135",
     "mie_cheb_eval": "wrfchem_arc_interactions_tpu/ops/pallas_mie.py:157",
     "advect_tracers": "wrfchem_arc_interactions_tpu/ops/pallas_adv_multi.py:281",
+    "ros2_integrate": "wrfchem_arc_interactions_tpu/ops/pallas_ros2.py:230",
 }
+# ros2_integrate's CUDA source is generated at run time by this module
+ROS2_SOURCE = f"{PKG}/ops/ros2_kernel.py"
 RAD_CHEM_EVERY = 100          # radt_s = chemdt_s = 600 s at dt = 6 s
 
 
@@ -96,11 +115,52 @@ def _seed(state):
     return state
 
 
+def _cfg4(nx=100, ny=100, nz=50, chem_s=60.0, rad_s=600.0,
+          start_date="2000-06-20_00:00:00"):
+    """bench.py's _cfg4 values: Morrison two-moment with prognostic droplet
+    number, CBM-Z + MOSAIC 4-bin with the default stage list (dry
+    deposition, Fast-J photolysis, gas chemistry, aerosol dynamics, optics)
+    every 60 s, RRTMG every 600 s, aerosol feedback on radiation."""
+    from wrfchem_arc_interactions_tpu_torch.config import (
+        ChemConfig, Config, DomainConfig, DynamicsConfig, PhysicsConfig, TimeControl,
+    )
+    from wrfchem_arc_interactions_tpu_torch.config.namelist import (
+        ChemOpt, MPScheme, RAScheme,
+    )
+    return Config(
+        domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=1000.0, dy=1000.0,
+                            ztop=17000.0, p_top=8000.0),
+        time_control=TimeControl(dt=6.0, start_date=start_date),
+        dynamics=DynamicsConfig(kvdif=30.0),
+        physics=PhysicsConfig(mp_physics=MPScheme.MORRISON2, progn=True,
+                              ra_sw_physics=RAScheme.RRTMG,
+                              ra_lw_physics=RAScheme.RRTMG, radt_s=rad_s),
+        chem=ChemConfig(chem_opt=ChemOpt.CBMZ_MOSAIC_4BIN, chemdt_s=chem_s,
+                        aer_ra_feedback=True),
+    )
+
+
+GAS_SEED = (("o3", 0.04), ("no2", 2e-3), ("no", 1e-3), ("co", 0.12), ("so2", 2e-3),
+            ("h2o2", 1e-3))
+
+
+def _seed4(state):
+    """bench.py's config-4 seed: the aerosol seed of config 3 plus six gases
+    [ppmv]."""
+    state = _seed(state)
+    for name, v in GAS_SEED:
+        state[f"chem_{name}"] = torch.full_like(state["t"], v)
+    return state
+
+
 def _kernels():
-    from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, mie_kernel, tracers_kernel
+    from wrfchem_arc_interactions_tpu_torch.ops import (
+        adv_kernel, mie_kernel, ros2_kernel, tracers_kernel,
+    )
     return {"advect_scalar_5_3": adv_kernel.advect_scalar_5_3,
             "mie_cheb_eval": mie_kernel.cheb_eval,
-            "advect_tracers": tracers_kernel.advect_tracers}
+            "advect_tracers": tracers_kernel.advect_tracers,
+            "ros2_integrate": ros2_kernel.ros2_integrate}
 
 
 def _reset_counts():
@@ -216,8 +276,8 @@ def _tracers_bound(nt, nz, ny, nx, pd):
     return _bound(nbytes, TRACER_OPS[pd] * nt * cells)
 
 
-def _entry(name, launches, max_abs, ms, plain_ms, bound):
-    return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
+def _entry(name, launches, max_abs, ms, plain_ms, bound, source=None):
+    return {"name": name, "route": "cuda", "source": source or f"{PKG}/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches, "max_abs_err": max_abs,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": None}
@@ -298,9 +358,10 @@ def kernel_mie(dev, nz, ny, nx, nband=30):
     return _entry("mie_cheb_eval", None, max(errs), ms, plain_ms, bound)
 
 
-def kernel_tracers(dev, grid, nt=47):
-    """One stage update of config 3's 47 scalars at full width, without
-    the limiter (stages 0-1) and with PD limiter and clip (stage 2)."""
+def kernel_tracers(dev, grid, nt):
+    """One stage update of `nt` scalars at full width (config 3 advects 47,
+    config 4 107), without the limiter (stages 0-1) and with PD limiter and
+    clip (stage 2): {mode: numbers}."""
     from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
     from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
     nz, ny, nx = grid.nz, grid.ny, grid.nx
@@ -353,10 +414,15 @@ def kernel_tracers(dev, grid, nt=47):
         modes["pd_clip" if pd else "no_limiter"] = {
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1]}
-    _tracers_boundaries(dev, grid)
-    # the main path calls it twice without the limiter and once with it per
-    # step: the entry carries the mean per call over that mix (its
-    # "launches" count grids, five per step)
+    return modes
+
+
+def tracers_entry(modes, modes_nt47):
+    """The multi-tracer kernel's entry.  A main path calls it twice without
+    the limiter and once with it per step: the entry carries the mean per
+    call over that mix at config 4's 107 scalars (its "launches" count
+    grids, five per step); `modes` holds both settings at nt = 107 and
+    `modes_nt47` at config 3's 47."""
     a, b = modes["no_limiter"], modes["pd_clip"]
     mean = {k: (2.0 * a[k] + b[k]) / 3.0 for k in ("ms", "plain_ms", "bound_ms")}
     entry = _entry("advect_tracers", None, max(a["max_abs_err"], b["max_abs_err"]),
@@ -364,6 +430,91 @@ def kernel_tracers(dev, grid, nt=47):
                    (mean["bound_ms"], a["bound_by"] if a["bound_by"] == b["bound_by"]
                     else "bytes and operations"))
     entry["modes"] = modes
+    entry["modes_nt47"] = modes_nt47
+    return entry
+
+
+def _gas_inputs(ncell, seed, dev):
+    """Seeded inputs of the ROS2 kernel: polluted-air concentrations
+    [molec/cm3] x U(0.5, 2) per cell, rate constants at 215-305 K with J
+    scales from night (30% of the cells) to overhead sun."""
+    from wrfchem_arc_interactions_tpu_torch.chem import gas
+    rng = np.random.default_rng(seed)
+    t_air = torch.from_numpy(rng.uniform(215.0, 305.0, ncell).astype(np.float32))
+    m_air = (rng.uniform(0.3, 1.0, ncell) * 2.5e19).astype(np.float32)
+    js = rng.uniform(0.0, 1.0, ncell) * (rng.uniform(size=ncell) > 0.3)
+    ppm = {"o3": 0.04, "no2": 2e-3, "no": 1e-3, "co": 0.12, "so2": 2e-3, "h2o2": 1e-3,
+           "ch4": 1.7, "hcho": 1e-3, "par": 5e-3, "isop": 1e-3, "tol": 1e-4}
+    conc = np.zeros((gas.NS, ncell), np.float32)
+    for sp, v in ppm.items():
+        conc[gas.IDX[sp]] = v * 1e-6 * m_air * rng.uniform(0.5, 2.0, ncell)
+    k = gas.rate_constants(t_air, torch.from_numpy(m_air),
+                           torch.from_numpy(js.astype(np.float32)))
+    return torch.from_numpy(conc).to(dev), k.contiguous().to(dev)
+
+
+def _ros2_compare(kin, ros2_kernel, conc, k, dt_total, n_sub):
+    """Kernel, plain version and vectorised form on the same inputs:
+    (max |a-b| / (|b| + 1e3) vs plain, max |a-b| vs plain, bitwise equal,
+    max |a-b| / (|b| + 1e3) vs vectorised).  Raises past the limits."""
+    out = ros2_kernel.ros2_integrate(kin, conc, k, dt_total, n_sub)
+    ref = ros2_kernel.integrate_reference(kin, conc, k, dt_total, n_sub)
+    vec = conc
+    for _ in range(n_sub):
+        vec = kin.step_ros2(vec, k, dt_total / n_sub)
+    torch.cuda.synchronize()
+    if out.shape != conc.shape or not (torch.isfinite(out).all() and (out >= 0).all()):
+        raise RuntimeError("ros2_integrate: wrong shape, non-finite or negative output")
+    max_abs = float((out - ref).abs().max())
+    err = float(((out - ref).abs() / (ref.abs() + 1e3)).max())
+    err_vec = float(((out - vec).abs() / (vec.abs() + 1e3)).max())
+    equal = bool(torch.equal(out, ref))
+    print(f"ros2_integrate (kernel) vs plain on the card at {conc.shape[1]} cells, n_sub "
+          f"{n_sub}: max|a-b|/(|b|+1e3) = {err:.3g} (limit 1e-5; built with --fmad=false), "
+          f"max|a-b| = {max_abs:.6g} molec/cm3, bitwise equal {equal}; "
+          f"vs the vectorised form {err_vec:.3g} (limit 5e-3)")
+    if not err <= 1e-5:
+        raise RuntimeError(f"ros2_integrate disagrees with its plain version: {err}")
+    if not err_vec <= 5e-3:
+        raise RuntimeError(f"ros2_integrate disagrees with the vectorised form: {err_vec}")
+    return err, max_abs, equal, err_vec
+
+
+def kernel_ros2(dev, ncell, n_sub=2, dt_total=60.0):
+    """The generated ROS2 kernel against its plain version (the same
+    program walked on tensors) at the main path's `ncell` cells and `n_sub`
+    substeps, and at 4,133 cells (a short grid with a ragged last block);
+    then its time at `ncell` cells beside the plain version's and the
+    vectorised CPU-path form's device time (profiler: both are thousands of
+    launches).  The entry's errors are the ones at `ncell` cells."""
+    from wrfchem_arc_interactions_tpu_torch.chem import gas
+    from wrfchem_arc_interactions_tpu_torch.ops import ros2_kernel
+    kin = gas._kinetics()
+    _ros2_compare(kin, ros2_kernel, *_gas_inputs(4096 + 37, 5, dev), dt_total, n_sub)
+    conc, k = _gas_inputs(ncell, 6, dev)
+    err, max_abs, equal, err_vec = _ros2_compare(kin, ros2_kernel, conc, k, dt_total, n_sub)
+
+    ms = _device_ms(lambda: ros2_kernel.ros2_integrate(kin, conc, k, dt_total, n_sub),
+                    calls=5, trials=20)
+    plain_ms = _profiled_ms(lambda: ros2_kernel.integrate_reference(
+        kin, conc, k, dt_total, n_sub), reps=1)
+
+    def vectorised():
+        c = conc
+        for _ in range(n_sub):
+            c = kin.step_ros2(c, k, dt_total / n_sub)
+        return c
+
+    vec_ms = _profiled_ms(vectorised, reps=1)
+    flops = ros2_kernel.flops_per_substep(kin)
+    bound = _bound(4 * (2 * kin.ns + kin.nr) * ncell, n_sub * flops * ncell)
+    print(f"ros2_integrate at {ncell} cells, n_sub {n_sub} ({flops} flops per substep and "
+          f"cell), device time per call: kernel {ms:.4f} ms at {ros2_kernel.THREADS} "
+          f"threads per block, plain {plain_ms:.3f} ms, vectorised form {vec_ms:.3f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}, {100.0 * bound[0] / ms:.1f}% of it)")
+    entry = _entry("ros2_integrate", None, max_abs, ms, plain_ms, bound, source=ROS2_SOURCE)
+    entry.update(vectorised_ms=vec_ms, flops_per_substep=flops, max_rel_err=err,
+                 max_rel_err_vectorised=err_vec, bitwise_equal=equal, compared_at_cells=ncell)
     return entry
 
 
@@ -448,7 +599,7 @@ def slice_phase(cfg, grid, state, dev, steps, card):
     # advect_tracers counts grids: one per call without the limiter (stages
     # 0-1), three with it (stage 2)
     want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": 5 * steps,
-            "mie_cheb_eval": 4}
+            "mie_cheb_eval": 4, "ros2_integrate": 0}
     if launches != want:
         raise RuntimeError(f"kernel launches in the {steps}-step window {launches}, "
                            f"expected {want}")
@@ -497,13 +648,121 @@ def slice1_phase(dev, card, steps=10):
     sim.sync()
     wall = time.perf_counter() - t0
     launches = _counts()
-    want = {"advect_scalar_5_3": 9 * steps, "advect_tracers": 0, "mie_cheb_eval": 0}
+    want = {"advect_scalar_5_3": 9 * steps, "advect_tracers": 0, "mie_cheb_eval": 0,
+            "ros2_integrate": 0}
     if launches != want:
         raise RuntimeError(f"slice 1's path: launches {launches}, expected {want}")
     if not all(bool(torch.isfinite(v).all()) for v in sim.state.values()):
         raise RuntimeError("slice 1's path: non-finite fields")
     print(f"slice 1's path (radiation and chemistry off): {steps} steps, "
           f"{wall / steps * 1e3:.3f} ms/step [{card}]; kernel launches {launches}")
+    return launches
+
+
+def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
+    """BASELINE config 4 through `Simulation`: one 100-step window with 10
+    chem calls and 1 rad call, the physical checks, the exact launch counts
+    of all four kernels, the synchronised phase times and a profile of one
+    chem call.  Returns (launches, numbers)."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
+    cfg = _cfg4()
+    t0 = time.perf_counter()
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    state = _seed4(state)
+    sim = Simulation(cfg, grid, state, device=dev)
+    nt = len(advected_names(cfg))
+    print(f"case squall2d_x 100x100x50 (config 4, {len(state)} fields, {nt} advected "
+          f"scalars) built in {time.perf_counter() - t0:.2f} s")
+    if not (nt == 107 and sim.rad_every == steps and sim.chem_every == 10):
+        raise RuntimeError(f"config 4: {nt} scalars, rad every {sim.rad_every}, chem "
+                           f"every {sim.chem_every}; expected 107, {steps}, 10")
+    sim.advance(2)                  # warm-up: both alarms ring at step 0
+    sim.sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.advance(steps)              # steps 2..101: chem at 10, 20, .., 100; rad at 100
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    s = sim.state
+    for k, v in s.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"config 4: non-finite {k} after {steps + 2} steps")
+    neg = [k for k, v in s.items() if k.startswith("chem_") and float(v.min()) < 0.0]
+    if neg:
+        raise RuntimeError(f"config 4: negative chem fields {neg}")
+    o3 = (float(s["chem_o3"].min()), float(s["chem_o3"].max()))
+    if not (0.02 <= o3[0] and o3[1] <= 0.06):
+        raise RuntimeError(f"config 4: O3 {o3} ppmv outside 0.02-0.06 (seed 0.04)")
+    w_max = float(s["w"].max())
+    if not 0.0 < w_max < 60.0:
+        raise RuntimeError(f"config 4: max w = {w_max} m/s outside (0, 60)")
+    cloudy = s["qc"] > 1e-6
+    n_cloudy = int(cloudy.sum())
+    with_nc = int((s["nc"][cloudy] > 0.0).sum())
+    # at a cloud's evaporating or raining-out edge the scheme can leave a
+    # little water with its droplet number clipped to 0 (a few percent of
+    # the cloudy cells); the bulk of the cloud must carry droplets
+    if n_cloudy and with_nc < 0.9 * n_cloudy:
+        raise RuntimeError(f"config 4: droplet number in only {with_nc} of {n_cloudy} "
+                           "cells with cloud water")
+    if not float(s["tau_aer_sw"].min()) > 0.0:
+        raise RuntimeError("config 4: tau_aer_sw is not positive where the bins are seeded")
+    olr = (float(s["olr"].min()), float(s["olr"].max()))
+    if not (100.0 <= olr[0] and olr[1] <= 400.0):
+        raise RuntimeError(f"config 4: OLR {olr} outside 100-400 W m-2")
+    n_chem = steps // sim.chem_every
+    # theta takes the single-scalar kernel on 3 stages; the 107 scalars take
+    # the multi-tracer kernel (1 + 1 + 3 grids per step); each chem call
+    # launches the Mie kernel once per bin and the ROS2 kernel once (its
+    # substeps are fused into the one launch)
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": 5 * steps,
+            "mie_cheb_eval": 4 * n_chem, "ros2_integrate": n_chem}
+    if launches != want:
+        raise RuntimeError(f"config 4: kernel launches in the {steps}-step window "
+                           f"{launches}, expected {want}")
+    d = cfg.domain
+    ms_step = wall / steps * 1e3
+    print(f"slice (config 4): {steps} steps of {d.nx}x{d.ny}x{d.nz} after 2 warm-up "
+          f"steps, {n_chem} chem calls and one rad call in the window: {ms_step:.3f} "
+          f"ms/step, {d.nx * d.ny * d.nz / (wall / steps) / 1e6:.4f} M gridpoints/s "
+          f"[{card}]; max w {w_max:.3f} m/s, max qc {float(s['qc'].max()):.3e}, cloudy "
+          f"cells {n_cloudy} ({with_nc} with droplets, max nc {float(s['nc'].max()):.3e} "
+          f"/kg), O3 {o3[0]:.5f}-{o3[1]:.5f} ppmv, max OH {float(s['chem_oh'].max()):.3e}, "
+          f"OLR {olr[0]:.1f}-{olr[1]:.1f} W m-2, tau_aer_sw "
+          f"{float(s['tau_aer_sw'].min()):.4g}-{float(s['tau_aer_sw'].max()):.4g}; "
+          f"kernel launches {launches}")
+
+    t_now = np.float32(sim.time_s)
+    main, rad, chem = (sim._stepper(k) for k in ("main", "rad", "chem"))
+    main_ms = _timed_ms(lambda: main(sim.state, sim.grid, t_now), 5)
+    rad_ms = _timed_ms(lambda: rad(sim.state, sim.grid, t_now), 2)
+    chem_ms = _timed_ms(lambda: chem(sim.state, sim.grid, t_now), 3)
+    print(f"phases (config 4), synchronised: main step {main_ms:.3f} ms, rad call "
+          f"{rad_ms:.3f} ms, chem call {chem_ms:.3f} ms; per step of the window: main + "
+          f"chem/{sim.chem_every} + rad/{steps} = "
+          f"{main_ms + chem_ms / sim.chem_every + rad_ms / steps:.3f} ms")
+    dev_ms, n_kernels, rows = _profile(lambda: chem(sim.state, sim.grid, t_now))
+    print(f"profile of one config-4 chem call: device busy {dev_ms:.3f} ms in {n_kernels} "
+          f"kernels; ros2_kernel {_per_call_us(rows, 'ros2_kernel') / 1e3:.4f} ms, "
+          f"mie_cheb_eval {_per_call_us(rows, 'mie_cheb_eval') / 1e3:.4f} ms per launch on "
+          f"the main path's inputs")
+    for t_us, count, key in rows[:6]:
+        print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    sim.sync()
+    dev2_ms, n2, rows2 = _profile(lambda: sim.advance(1))     # step 107: main only
+    print(f"profile of one config-4 main step: device busy {dev2_ms:.3f} ms in {n2} "
+          f"kernels; against the unprofiled {ms_step:.3f} ms/step the device is busy "
+          f"{100.0 * (dev2_ms + dev_ms / sim.chem_every) / ms_step:.1f}% (main step + a "
+          f"tenth of a chem call); advect_tracers grids: update "
+          f"{_per_call_us(rows2, 'update_kernel'):.2f} us, low factor "
+          f"{_per_call_us(rows2, 'low_factor'):.2f} us, high factor "
+          f"{_per_call_us(rows2, 'high_factor'):.2f} us per launch")
+    for t_us, count, key in rows2[:6]:
+        print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    return launches
 
 
 def _profile(fn):
@@ -574,17 +833,16 @@ def profile_phase(sim, dev, ms_step):
           f"of the step's wall time")
 
 
-def cross_check(dev):
-    """3 steps of a small config 3 starting at noon UTC, radiation and chem
-    every step, on the card against the CPU.  The limit per field is 1e-4
-    of its magnitude, or three times the CPU run's own float32 noise (the
-    CPU run again from theta changed by one ulp) where that is larger — as
-    the CPU tests hold the port to the reference."""
+def cross_check(dev, cfg, seed, label):
+    """3 steps of a small configuration starting at noon UTC, radiation and
+    chem every step, on the card against the CPU.  The limit per field is
+    1e-4 of its magnitude, or three times the CPU run's own float32 noise
+    (the CPU run again from theta changed by one ulp) where that is larger —
+    as the CPU tests hold the port to the reference."""
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
-    cfg = _cfg3(nx=32, ny=8, nz=20, every_s=6.0, start_date="2000-06-20_12:00:00")
     grid, state = ideal.make_case(cfg, "squall2d_x", device="cpu", bubble_amp=3.0)
-    state = _seed(state)
+    state = seed(state)
     ulp = dict(state, t=state["t"] * (1.0 + 2.0 ** -23))
     runs = {}
     for key, s0, where in (("gpu", state, dev), ("cpu", state, "cpu"), ("ulp", ulp, "cpu")):
@@ -592,7 +850,7 @@ def cross_check(dev):
         sim.advance(3)
         runs[key] = {k: v.double().cpu() for k, v in sim.state.items()}
     if not float(runs["gpu"]["swdown"].max()) > 100.0:
-        raise RuntimeError("cross-check: no sunlight at noon")
+        raise RuntimeError(f"cross-check ({label}): no sunlight at noon")
     phb = float(grid.phb.abs().max())
     worst = []
     for k, ref in runs["cpu"].items():
@@ -601,10 +859,10 @@ def cross_check(dev):
         noise = float((runs["ulp"][k] - ref).abs().max()) / scale
         worst.append((err, k, noise))
         if not err <= max(1e-4, 3.0 * noise):
-            raise RuntimeError(f"card vs CPU: {k} differs by {err:.3g} of its "
-                               f"magnitude (CPU noise {noise:.3g})")
+            raise RuntimeError(f"card vs CPU ({label}): {k} differs by {err:.3g} of "
+                               f"its magnitude (CPU noise {noise:.3g})")
     worst.sort(reverse=True)
-    print("cross-check 3 steps of config 3 at 32x8x20 from noon, card vs CPU, worst "
+    print(f"cross-check 3 steps of {label} at 32x8x20 from noon, card vs CPU, worst "
           "fields: " + ", ".join(f"{k} {e:.3g} (CPU one-ulp noise {n:.3g})"
                                   for e, k, n in worst[:4]))
 
@@ -617,8 +875,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from wrfchem_arc_interactions_tpu_torch.chem import gas
     from wrfchem_arc_interactions_tpu_torch.models import ideal
-    from wrfchem_arc_interactions_tpu_torch.ops import build
+    from wrfchem_arc_interactions_tpu_torch.ops import build, ros2_kernel
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -629,6 +888,11 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    kin = gas._kinetics()
+    ros2_name = ros2_kernel.register(kin)        # generates the source into build/
+    print(f"generated {ros2_name}.cu from the CBM-Z tables ({kin.ns} species, {kin.nr} "
+          f"reactions, {kin.nnz} LU nonzeros, {ros2_kernel.flops_per_substep(kin)} flops "
+          f"per substep and cell) in {time.perf_counter() - t0:.2f} s")
     per_kernel = build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_kernel.items())})")
@@ -644,16 +908,35 @@ def main(argv=None) -> int:
         "advect_scalar_5_3": kernel_adv(dev, grid.rdnw, grid.rdx, grid.rdy,
                                         d.nz, d.ny, d.nx),
         "mie_cheb_eval": kernel_mie(dev, d.nz, d.ny, d.nx),
-        "advect_tracers": kernel_tracers(dev, grid),
     }
+    modes_nt47 = kernel_tracers(dev, grid, nt=47)
+    torch.cuda.empty_cache()
+    entries["advect_tracers"] = tracers_entry(kernel_tracers(dev, grid, nt=107), modes_nt47)
+    _tracers_boundaries(dev, grid)
+    torch.cuda.empty_cache()
+    entries["ros2_integrate"] = kernel_ros2(dev, d.nx * d.ny * d.nz)
     torch.cuda.empty_cache()
 
-    sim, launches, ms_step = slice_phase(cfg, grid, state, dev, args.steps, card)
-    for name, n in launches.items():
-        entries[name]["launches"] = n
-    slice1_phase(dev, card)
+    sim, launches3, ms_step = slice_phase(cfg, grid, state, dev, args.steps, card)
+    launches1 = slice1_phase(dev, card)
     profile_phase(sim, dev, ms_step)
-    cross_check(dev)
+    cross_check(dev, _cfg3(nx=32, ny=8, nz=20, every_s=6.0,
+                           start_date="2000-06-20_12:00:00"), _seed, "config 3")
+    del sim, grid, state
+    torch.cuda.empty_cache()
+    launches4 = slice4_phase(dev, card, args.steps)
+    torch.cuda.empty_cache()
+    cross_check(dev, _cfg4(nx=32, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
+                           start_date="2000-06-20_12:00:00"), _seed4, "config 4")
+    # "launches" is the count of this slice's main path, config 4's window,
+    # which runs all four kernels; the earlier paths' counts stand beside it
+    for name, entry in entries.items():
+        entry["launches"] = launches4[name]
+        entry["launches_by_path"] = {"config4_window": launches4[name],
+                                     "config3_window": launches3[name],
+                                     "slice1_10_steps": launches1[name]}
+        if launches4[name] < 1:
+            raise RuntimeError(f"{name} was not launched on config 4's path")
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# small tensors: one thread per process (the suite runs several workers, and
+# intra-op threads of many tiny operations only contend for the cores)
+torch.set_num_threads(1)
 
 from wrfchem_arc_interactions_tpu import config as jcfg  # noqa: E402
 from wrfchem_arc_interactions_tpu.config.namelist import BCKind as JBC  # noqa: E402

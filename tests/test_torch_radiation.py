@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# small tensors: one thread per process (the suite runs several workers, and
+# intra-op threads of many tiny operations only contend for the cores)
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -23,6 +23,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# small tensors: one thread per process (the suite runs several workers, and
+# intra-op threads of many tiny operations only contend for the cores)
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -239,9 +242,10 @@ print("OK")
 
 
 @pytest.mark.parametrize("change", [
-    {"chem": (("chem_opt", "cbmz_mosaic_4bin"),)},
-    {"chem": (("chem_opt", "mosaic_4bin"), ("aerchem_onoff", True))},
-    {"physics": (("mp_physics", "morrison2"),)},
+    {"chem": (("chem_opt", "cbmz_mosaic_8bin"),)},
+    {"chem": (("chem_opt", "mosaic_4bin"), ("cldchem_onoff", True))},
+    {"chem": (("chem_opt", "cbmz_mosaic_4bin"), ("wetscav_onoff", True))},
+    {"chem": (("chem_opt", "mosaic_4bin"), ("emiss_opt", 1))},
     {"physics": (("bl_pbl_physics", "ysu"),)},
     {"dynamics": (("moist_adv_opt", "mono"),)},
 ])

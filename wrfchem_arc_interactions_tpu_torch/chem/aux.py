@@ -1,12 +1,15 @@
-"""Dry deposition (port of `dry_deposition` and `deposition_velocities`
-from the JAX package's `chem/aux.py`; canonical: chem/dry_dep_driver.F,
-module_aer_drydep.F).
+"""Dry deposition and the gray photolysis profile (port of
+`dry_deposition`, `deposition_velocities` and `photolysis_profile` from the
+JAX package's `chem/aux.py`; canonical: chem/dry_dep_driver.F,
+module_aer_drydep.F, module_phot_fastj.F).
 
-A first-order sink in the lowest model layer, with species-class
-deposition velocities when no friction velocity is available, or the
-resistance-in-series velocities when the surface scheme provides one.
-Photolysis scaling, wet scavenging, cloud chemistry and emissions come with
-slice 3 (`chem.driver` refuses them).
+Dry deposition is a first-order sink in the lowest model layer, with
+species-class deposition velocities when no friction velocity is available,
+or the resistance-in-series velocities when the surface scheme provides
+one.  A chem field named after a species of `chem.gas.GAS_SPECIES` is
+treated as a gas.  Emissions and plume rise, the cloud-borne phase, cloud
+chemistry and wet scavenging are not ported yet (`chem.driver` refuses
+them).
 """
 
 from __future__ import annotations
@@ -16,26 +19,8 @@ from typing import Dict
 
 import torch
 
+from wrfchem_arc_interactions_tpu_torch.chem.gas import GAS_SPECIES  # noqa: F401
 from wrfchem_arc_interactions_tpu_torch.chem.mosaic import bins as mbins
-
-# The CBM-Z gas species (a copy of the JAX package's chem/gas.py
-# GAS_SPECIES; the mechanism itself comes with slice 3).  Dry deposition
-# treats a chem field named after one of them as a gas; the aerosol-only
-# packages carry four of them as condensable precursors.
-GAS_SPECIES = (
-    # inorganic
-    "o3", "no", "no2", "no3", "n2o5", "hno3", "hono", "hno4", "h2o2", "co",
-    "so2", "h2so4", "nh3", "hcl", "h2",
-    # organic (stable)
-    "ch4", "c2h6", "par", "eth", "olet", "olei", "tol", "xyl", "cres",
-    "hcho", "ald2", "aone", "mgly", "open", "isop", "isoprd", "onit", "pan",
-    "rooh", "ch3ooh", "anol", "ch3oh", "hcooh", "rcooh",
-    # marine sulfur
-    "dms", "dmso", "msa",
-    # radicals / operators
-    "oh", "ho2", "ch3o2", "ethp", "c2o3", "ro2", "ano2", "to2", "cro",
-    "xo2", "isopp", "isopn", "isopo2",
-)
 
 # fallback deposition velocities [m/s] by species class (used when no
 # friction velocity is available)
@@ -84,6 +69,23 @@ def deposition_velocities(ust, z1, bin_diam_m):
                            + 10.0 ** (-3.0 / torch.clamp(st, min=1e-3))))
         vd_aer.append(vg + 1.0 / (ra + rs + ra * rs * vg))
     return vd_gas, vd_aer
+
+
+def photolysis_profile(mu0, qc, rho, dz, tau_aer_vis=None):
+    """3D J-rate scale coupled to the computed optical state (phot_opt=1).
+
+    Per-layer optical depth = cloud (tau = 150 * LWP_layer, i.e. 3/2 LWP /
+    (rho_w r_eff) with r_eff = 10 um) + the chem-computed near-UV aerosol
+    extinction profile `tau_aer_vis` (a band of tau_aer_sw).  The actinic
+    scale at layer k attenuates with the slant overhead optical depth:
+    J ~ mu0 * exp(-0.4 tau_above / max(mu0, 0.2)).  Returns (nz, ny, nx)."""
+    tau_lay = 150.0 * qc * rho * dz
+    if tau_aer_vis is not None:
+        tau_lay = tau_lay + tau_aer_vis
+    # overhead OD at layer k = sum of the layers above (k indexes upward)
+    od_above = torch.flip(torch.cumsum(torch.flip(tau_lay, (0,)), dim=0), (0,)) - tau_lay
+    slant = torch.clamp(od_above, 0.0, 20.0) / torch.clamp(mu0, min=0.2)[None]
+    return torch.clamp(mu0, min=0.0)[None] * torch.exp(-0.4 * slant)
 
 
 def dry_deposition(chem: Dict[str, torch.Tensor], dz0, dt: float,

@@ -104,18 +104,20 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
     pt = phys_tend or {}
 
     # Chem-scalar stage split (solve_em.F advects chem/tracer arrays only on
-    # the final RK3 stage).  A scalar with a physics tendency rides every
-    # stage; with diffusion on (config 3) every scalar has one, so the
-    # final-only set is empty.
+    # the final RK3 stage: one flux-form update from the step-start value
+    # with the time-averaged acoustic mass fluxes and the chem_adv_opt
+    # limiter).  A scalar with a physics tendency rides every stage; with
+    # diffusion on (configs 3 and 4) every scalar has one, so the final-only
+    # set is empty there.
     stage_set = set(moist) | {"tke", "qke"} | set(pt)
     if dyn.chem_adv_final_only:
         final_scalars = tuple(q for q in scalars if q not in stage_set)
     else:
         final_scalars = ()
-    if final_scalars:
+    if final_scalars and dyn.chem_adv_opt == AdvLimiter.MONOTONIC:
         raise NotImplementedError(
-            f"final-stage-only tracers {final_scalars} (no physics tendency) are "
-            "not ported yet; they come with a later slice (ROADMAP Queue 1 item 6)")
+            "the monotonic limiter (chem_adv_opt=mono) is not ported yet; it comes "
+            "with a later slice (ROADMAP Queue 1 item 7, remaining physics)")
     stage_scalars = tuple(q for q in scalars if q not in final_scalars)
 
     h_m, v_m = dyn.h_mom_adv_order.value, dyn.v_mom_adv_order.value
@@ -150,6 +152,9 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         "ph": state["ph"],
     }
     phi_old = {name: mu_full_0[None] * state[name] for name in loop_names}
+    if final_scalars:
+        sc_fin = torch.stack([state[q] for q in final_scalars])
+        phi_fin = mu_full_0[None, None] * sc_fin
     if batched:
         sc_stack = torch.stack([state[q] for q in stage_scalars])
         phi_stack = mu_full_0[None, None] * sc_stack
@@ -319,6 +324,26 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             if limited:
                 qn = torch.clamp(qn, min=0.0)
             new[q] = qn
+
+        if final and final_scalars:
+            # chem tracers: one final-stage update from the step-start value
+            # (their state still holds it) with the time-averaged fluxes
+            pd = dyn.chem_adv_opt == AdvLimiter.POSITIVE_DEFINITE
+            fin_pad = hx.pad(sc_fin, 3)
+            if fused_53:
+                fin_new = advect_tracers(fin_pad, phi_fin, ru_s, rv_s, ww_s, mu_full,
+                                         mu_full_new, grid, hx, dts, pd=pd, clip=pd)
+            else:
+                fx, fy, fz = adv.scalar_fluxes(fin_pad, ru_s, rv_s, ww_s, h_s, v_s)
+                if pd:
+                    fx, fy, fz = adv.pd_limit(fin_pad, phi_fin, fx, fy, fz,
+                                              ru_s, rv_s, ww_s, dts, grid, hx)
+                fin_new = (phi_fin + dts * adv.flux_div(fx, fy, fz, grid)) \
+                    / mu_full_new[None, None]
+                if pd:
+                    fin_new = torch.clamp(fin_new, min=0.0)
+            for i, q in enumerate(final_scalars):
+                new[q] = fin_new[i]
 
         stage_state = new
 

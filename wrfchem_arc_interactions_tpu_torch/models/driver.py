@@ -5,7 +5,8 @@ A `Simulation` owns the steppers, the step clock and the radt/chemdt alarm
 cadence.  The reference compiles three executables — "main" every step,
 "rad" and "chem" on their alarms — and the port keeps the same three
 steppers in the same alarm order within a step: chem, then rad, then main.
-Model time reaches the solar ephemeris and the McICA seed as float32, as
+Model time reaches the solar ephemeris (of the rad and of the chem stepper,
+whose photolysis rates follow the sun) and the McICA seed as float32, as
 the reference's ``t_now = jnp.float32(time_s)`` does.  History, restart,
 tslist and nesting come with later slices.
 """
@@ -80,7 +81,9 @@ class Simulation:
                     return radiation_driver(s, g, cfg, ts, julian_day=jd)
             elif key == "chem":
                 def fn(s, g, t_s):
-                    return chem_driver(s, g, cfg, cfg.chem.chemdt_s)
+                    ts, jd = self._solar_time(t_s)
+                    return chem_driver(s, g, cfg, cfg.chem.chemdt_s, time_s=ts,
+                                       julian_day=jd)
             else:
                 raise ValueError(key)
             self._steppers[key] = fn

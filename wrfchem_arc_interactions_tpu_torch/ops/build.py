@@ -7,6 +7,11 @@ so a build takes seconds).  Libraries go to ``build/`` inside the package
 an edited source is rebuilt and an unchanged one is reused.  `build_all`
 starts one ``nvcc`` per source, all at once.
 
+A kernel whose source is generated at run time (the ROS2 gas solver,
+written from the mechanism's tables by `ops/ros2_kernel.py`) registers its
+text with `register_generated`: the source is written into ``build/`` too
+and is then built and loaded like a static one.
+
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that the
 kernels round exactly where their plain PyTorch versions do.
 """
@@ -33,7 +38,37 @@ SOURCES = {"advect_scalar_5_3": "advect_scalar_5_3.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
+# kernel name -> path of a generated source under build/
+_GENERATED: Dict[str, str] = {}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def register_generated(name: str, text: str) -> str:
+    """Write the generated CUDA source `text` of kernel `name` into
+    ``build/<name>.cu`` (unless it is already there) and make `name` known
+    to `lib_path`, `build_all` and `load`.  Returns the source's path."""
+    if name in SOURCES:
+        raise ValueError(f"{name} is a static kernel")
+    path = os.path.join(BUILD_DIR, f"{name}.cu")
+    if name not in _GENERATED or not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    _GENERATED[name] = path
+    return path
+
+
+def _source(name: str) -> str:
+    """Source path of kernel `name`."""
+    if name in SOURCES:
+        return os.path.join(CSRC_DIR, SOURCES[name])
+    if name in _GENERATED:
+        return _GENERATED[name]
+    raise KeyError(f"unknown kernel {name}: neither a source under csrc/ nor a "
+                   "registered generated source")
 
 
 def nvcc_path() -> str:
@@ -45,22 +80,23 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
+    with open(_source(name), "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:12]}.so")
 
 
 def build_all(names: Optional[Iterable[str]] = None,
               verbose: bool = False) -> Dict[str, float]:
-    """Compile every missing library, one ``nvcc`` per source in parallel.
+    """Compile every missing library (by default the static sources and
+    every generated source registered so far), one ``nvcc`` per source in
+    parallel.
 
     Returns {name: build seconds} (0.0 for a library that was already
     built).  Raises with the compiler's output if any build fails.  With
     `verbose`, passes ``-Xptxas -v`` and prints the compiler's report of
     registers and spills.
     """
-    names = list(SOURCES if names is None else names)
+    names = list([*SOURCES, *_GENERATED] if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -71,7 +107,7 @@ def build_all(names: Optional[Iterable[str]] = None,
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])]
+               "-o", tmp, _source(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

@@ -15,6 +15,7 @@ only bounds its memory, and the port solves all columns in one call.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from wrfchem_arc_interactions_tpu_torch.config import Config
@@ -132,6 +133,17 @@ def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
             kw["tau_aer_sw"], kw["ssa_aer_sw"], kw["asy_aer_sw"] = aer_sw
         if cf is not None:
             kw["cldfra"], kw["mcica_seed"] = cf, seed
+        # Twomey / first-indirect pathway: prognostic droplet number sets
+        # the cloud effective radius re = k_disp (3 qc / (4 pi rho_w
+        # Nc))^(1/3) (qc and Nc both per kg air, so the air density
+        # cancels), clipped to the 2.5-50 um validity range of the
+        # geometric-optics cloud tau
+        if phys.progn and "nc" in state and "qc" in state:
+            qc_f = state["qc"].reshape(nz, ncol)
+            nc_f = torch.clamp(state["nc"].reshape(nz, ncol), min=1.0e3)
+            rvol = (3.0 * torch.clamp(qc_f, min=0.0)
+                    / (4.0 * np.pi * 1000.0 * nc_f)) ** (1.0 / 3.0)
+            kw["re_liq"] = torch.clamp(1.1 * rvol, 2.5e-6, 50.0e-6)
         sw = sw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo, **kw)
         out["rthraten_sw"] = unflat(sw["heating"] / exner)
         out["swdown"] = unflat(sw["swdown"])

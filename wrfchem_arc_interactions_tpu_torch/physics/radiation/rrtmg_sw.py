@@ -28,11 +28,15 @@ ASY_LIQ = 0.85
 EPS = 1e-6
 
 
-def cloud_tau_sw(lwp: torch.Tensor) -> torch.Tensor:
-    """Geometric-optics liquid cloud extinction tau = 3 LWP / (2 rho_w re)
-    at the fixed re = 10 um (the droplet-number-coupled radius of the
-    Twomey pathway comes with Morrison microphysics, slice 3)."""
-    return 1.5 * lwp / (c.RHOWATER * RE_LIQ)
+def cloud_tau_sw(lwp: torch.Tensor, re_liq=None) -> torch.Tensor:
+    """Geometric-optics liquid cloud extinction tau = 3 LWP / (2 rho_w re).
+
+    `re_liq` (same shape as lwp, metres) carries the microphysics-coupled
+    droplet effective radius — the Twomey / first-indirect pathway: higher
+    activated Nc at fixed LWC gives smaller re, larger tau, brighter cloud.
+    None keeps the fixed 10 um used when droplet number is not prognostic."""
+    re = RE_LIQ if re_liq is None else re_liq
+    return 1.5 * lwp / (c.RHOWATER * re)
 
 
 def two_stream(tau, ssa, asy, mu0):
@@ -100,7 +104,8 @@ def sw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo,
               ssa_aer_sw: Optional[torch.Tensor] = None,
               asy_aer_sw: Optional[torch.Tensor] = None,
               cldfra: Optional[torch.Tensor] = None,
-              mcica_seed=0) -> Dict[str, torch.Tensor]:
+              mcica_seed=0,
+              re_liq: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """SW flux profiles.  Inputs (nz, ncol); mu0, albedo (ncol,); aerosol
     arrays (nband_sw, nz, ncol).  Returns face fluxes (nz+1, ncol), heating
     (nz, ncol), and the surface / TOA diagnostics.
@@ -120,9 +125,9 @@ def sw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo,
         cf = torch.clamp(cldfra, 0.0, 1.0)
         mask = mcica.mcica_mask(cf, tau_gas.shape[0], mcica_seed)
         lwp_ic = lwp / torch.clamp(cf, min=mcica.CF_MIN)
-        tau_cld = cloud_tau_sw(lwp_ic)[None] * mask
+        tau_cld = cloud_tau_sw(lwp_ic, re_liq)[None] * mask
     else:
-        tau_cld = cloud_tau_sw(lwp)[None]
+        tau_cld = cloud_tau_sw(lwp, re_liq)[None]
 
     tau_tot = tau_gas + tau_ray + tau_cld
     w_ray = tau_ray

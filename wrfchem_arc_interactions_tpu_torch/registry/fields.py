@@ -1,10 +1,12 @@
 """Declarative field-spec table — the WRF Registry equivalent (port of the
 JAX package's `registry/fields.py`).
 
-Ported: the dynamical core state, the moist scalars, the surface fields
-every configuration carries, the radiation fields (held heating rates,
-surface and TOA fluxes, cloud fraction), the chem tracers of the MOSAIC
-4-bin package and the aerosol optical arrays.  The PBL, land-surface, cumulus,
+Ported: the dynamical core state, the moist scalars (Kessler's three or
+Morrison's twelve), the surface fields every configuration carries, the
+radiation fields (held heating rates, surface and TOA fluxes, cloud
+fraction), the chem tracers of the MOSAIC 4-bin packages (with the CBM-Z
+gases for ``cbmz_mosaic_4bin``) and the aerosol optical arrays.  The
+cloud-borne phase, the 8-bin packages and the PBL, land-surface, cumulus,
 TKE and stochastic-physics entries come with their slices; a configuration
 that needs them is refused by `utils.support.check_config` before any
 table is built.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+from wrfchem_arc_interactions_tpu_torch.chem.gas import GAS_SPECIES
 from wrfchem_arc_interactions_tpu_torch.chem.mosaic.bins import AER_SPECIES
 from wrfchem_arc_interactions_tpu_torch.config import ChemConfig, Config
 from wrfchem_arc_interactions_tpu_torch.config.namelist import ChemOpt, RAScheme
@@ -87,20 +90,25 @@ def _moist_fields(cfg: Config) -> Tuple[FieldSpec, ...]:
 
 
 def chem_species(chem: ChemConfig) -> Tuple[str, ...]:
-    """Advected chemistry tracer names of the aerosol-only MOSAIC 4-bin
-    package: per size bin, the masses of so4/no3/nh4/cl/na/oin/bc/oc,
-    aerosol water and number, then the four condensable precursor gases.
-    The cloud-borne phase and the CBM-Z gases come with slice 3
-    (`utils.support.check_config` refuses them)."""
+    """Advected chemistry tracer names of the active package: per size bin,
+    the masses of so4/no3/nh4/cl/na/oin/bc/oc, aerosol water and number;
+    then the CBM-Z gas species (`chem.gas`) for a gas package, or the four
+    condensable precursor gases for an aerosol-only one.  The cloud-borne
+    (_cw) phase is not ported yet (`utils.support.check_config` refuses
+    ``cldchem_onoff``)."""
     if chem.chem_opt == ChemOpt.NONE:
         return ()
+    nbin = 8 if "8bin" in chem.chem_opt.value else 4
     names = []
-    for b in range(1, 5):
+    for b in range(1, nbin + 1):
         for s in AER_SPECIES:
             names.append(f"{s}_a{b:02d}")
         names.append(f"water_a{b:02d}")
         names.append(f"num_a{b:02d}")
-    names.extend(("h2so4", "hno3", "nh3", "hcl"))
+    if chem.chem_opt in (ChemOpt.CBMZ_MOSAIC_4BIN, ChemOpt.CBMZ_MOSAIC_8BIN):
+        names.extend(GAS_SPECIES)
+    else:
+        names.extend(("h2so4", "hno3", "nh3", "hcl"))
     return tuple(names)
 
 

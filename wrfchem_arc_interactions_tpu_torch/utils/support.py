@@ -4,9 +4,13 @@ The port goes slice by slice (ROADMAP.md, Queue 1).  Slices 1 and 2 carry
 BASELINE config 3 whole: dycore + Smagorinsky diffusion + Kessler, RRTMG
 SW/LW on the radt alarm, and MOSAIC 4-bin chemistry with fixed bins (dry
 deposition and aerosol optics, fed back to radiation with
-``aer_ra_feedback``) on the chemdt alarm; single device, ideal flat grid.
-Every option outside it raises `NotImplementedError` naming the slice that
-brings it, so that nothing runs silently with a piece missing.
+``aer_ra_feedback``) on the chemdt alarm.  Slice 3 adds BASELINE config 4:
+Morrison two-moment microphysics with aerosol activation, CBM-Z gas
+chemistry (Fast-J or gray photolysis, fixed or adaptive ROS2 steps) and the
+MOSAIC aerosol dynamics (nucleation, partitioning, coagulation, remap);
+single device, ideal flat grid.  Every option outside these raises
+`NotImplementedError` naming the slice that brings it, so that nothing runs
+silently with a piece missing.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ from wrfchem_arc_interactions_tpu_torch.config.namelist import (
     SFSurface,
 )
 
-SLICE_CHEM = "slice 3 (config 4: Morrison, activation, MOSAIC aerosol " \
-             "dynamics, CBM-Z with the ROS2 kernel; ROADMAP Queue 1 item 6)"
+SLICE_CHEM = "a later slice (ROADMAP Queue 1 item 6b: emissions and plume " \
+             "rise, the cloud-borne phase with cloud chemistry, wet " \
+             "scavenging, the 8-bin packages)"
 SLICE_PHYS = "a later slice (ROADMAP Queue 1 item 7, remaining physics)"
 SLICE_REAL = "a later slice (ROADMAP Queue 1 item 9, real data and nesting)"
 SLICE_MESH = "a later slice (ROADMAP Queue 1 item 10, multi-GPU decomposition)"
@@ -39,14 +44,12 @@ def _unported(what: str, where: str) -> NotImplementedError:
 
 def unported_chem_stages(cfg: Config):
     """The chem-driver stages that `cfg` switches on and the port does not
-    carry yet (all of them come with slice 3).  Gas chemistry is not among
-    them: it runs only with a CBM-Z package, refused as a whole."""
+    carry yet (ROADMAP Queue 1 item 6b)."""
     ch = cfg.chem
     if ch.chem_opt == ChemOpt.NONE:
         return []
     switches = (("emissions (emiss_opt)", ch.emiss_opt),
                 ("cloud chemistry (cldchem_onoff)", ch.cldchem_onoff),
-                ("aerosol dynamics (aerchem_onoff)", ch.aerchem_onoff),
                 ("wet scavenging (wetscav_onoff)", ch.wetscav_onoff))
     return [name for name, on in switches if on]
 
@@ -56,13 +59,14 @@ def check_config(cfg: Config) -> None:
     ph, dyn, ch = cfg.physics, cfg.dynamics, cfg.chem
     if RAScheme.SIMPLE in (ph.ra_sw_physics, ph.ra_lw_physics):
         raise _unported("the simple radiation scheme (ra_*_physics=simple)", SLICE_PHYS)
-    if ch.chem_opt not in (ChemOpt.NONE, ChemOpt.MOSAIC_4BIN):
+    if ch.chem_opt not in (ChemOpt.NONE, ChemOpt.MOSAIC_4BIN, ChemOpt.CBMZ_MOSAIC_4BIN):
         raise _unported(f"chemistry (chem_opt={ch.chem_opt.value})", SLICE_CHEM)
+    if ch.aer_op_opt != 1:
+        raise _unported(f"aerosol optics mixing rule aer_op_opt={ch.aer_op_opt}",
+                        SLICE_CHEM)
     stages = unported_chem_stages(cfg)
     if stages:
         raise _unported(f"the chem stages {stages}", SLICE_CHEM)
-    if ph.mp_physics == MPScheme.MORRISON2 or ph.progn:
-        raise _unported("Morrison microphysics", SLICE_CHEM)
     if ph.mp_physics == MPScheme.WSM6:
         raise _unported("WSM6 microphysics", SLICE_PHYS)
     if ph.bl_pbl_physics != PBLScheme.NONE or ph.sf_sfclay_physics != SFScheme.NONE:
