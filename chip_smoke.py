@@ -11,9 +11,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    tables into ``build/`` (one nvcc per source, all at once);
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it (the multi-tracer kernel at config
-   3's 47 and config 4's 107 scalars; the ROS2 kernel against its plain
-   version at config 4's 500,000 cells and at 4,133 cells), timed with CUDA
-   events, beside its bound;
+   3's 47 and config 4's 107 scalars, and at small shapes that stress its
+   tile and its ring of planes on all three boundary kinds; the ROS2 kernel
+   against its plain version at config 4's 500,000 cells and at 4,133
+   cells), timed with CUDA events, beside its bound;
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -421,8 +422,8 @@ def tracers_entry(modes, modes_nt47):
     """The multi-tracer kernel's entry.  A main path calls it twice without
     the limiter and once with it per step: the entry carries the mean per
     call over that mix at config 4's 107 scalars (its "launches" count
-    grids, five per step); `modes` holds both settings at nt = 107 and
-    `modes_nt47` at config 3's 47."""
+    grids: one per call without the limiter, two with it); `modes` holds
+    both settings at nt = 107 and `modes_nt47` at config 3's 47."""
     a, b = modes["no_limiter"], modes["pd_clip"]
     mean = {k: (2.0 * a[k] + b[k]) / 3.0 for k in ("ms", "plain_ms", "bound_ms")}
     entry = _entry("advect_tracers", None, max(a["max_abs_err"], b["max_abs_err"]),
@@ -510,7 +511,9 @@ def kernel_ros2(dev, ncell, n_sub=2, dt_total=60.0):
     bound = _bound(4 * (2 * kin.ns + kin.nr) * ncell, n_sub * flops * ncell)
     print(f"ros2_integrate at {ncell} cells, n_sub {n_sub} ({flops} flops per substep and "
           f"cell), device time per call: kernel {ms:.4f} ms at {ros2_kernel.THREADS} "
-          f"threads per block, plain {plain_ms:.3f} ms, vectorised form {vec_ms:.3f} ms, "
+          f"threads per block, {ros2_kernel.BLOCKS_PER_SM} blocks per SM and "
+          f"{ros2_kernel.generate_source(kin)['shared_bytes']} bytes of shared memory per "
+          f"block, plain {plain_ms:.3f} ms, vectorised form {vec_ms:.3f} ms, "
           f"bound {bound[0]:.4f} ms ({bound[1]}, {100.0 * bound[0] / ms:.1f}% of it)")
     entry = _entry("ros2_integrate", None, max_abs, ms, plain_ms, bound, source=ROS2_SOURCE)
     entry.update(vectorised_ms=vec_ms, flops_per_substep=flops, max_rel_err=err,
@@ -518,41 +521,71 @@ def kernel_ros2(dev, ncell, n_sub=2, dt_total=60.0):
     return entry
 
 
-def _tracers_boundaries(dev, grid, nt=3, ny=9, nx=13):
-    """The kernel against its plain version on open and symmetric lateral
-    boundaries (config 3 is periodic), on a corner of config 3's grid: the
-    limiter reads neighbour factors through each boundary's index map."""
+# (nz, ny, nx) that stress the multi-tracer kernel's ring of planes (fewer
+# levels than the ring holds), its tile (one row; rows that do not fill the
+# last tile) and its slots (rows narrower and wider than a warp; a row so
+# wide that a thread owns eight slots, not four)
+TRACER_SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (50, 9, 13), (2, 4, 300))
+
+
+def tracer_boundary_cases():
+    """(nz, ny, nx, bc_x, bc_y) over `TRACER_SHAPES` and the three lateral
+    boundary kinds.  A boundary's halo of 3 needs 3 rows (periodic) or 4
+    (symmetric); a single row is open in y and takes each kind in x."""
+    cases = []
+    for nz, ny, nx in TRACER_SHAPES:
+        for bc in ("open", "symmetric", "periodic"):
+            need = {"open": 1, "periodic": 3, "symmetric": 4}[bc]
+            cases.append((nz, ny, nx, bc, bc if ny >= need else "open"))
+    return cases
+
+
+def _tracers_boundaries(dev, grid, nt=3):
+    """The kernel against its plain version at `tracer_boundary_cases`, with
+    and without the limiter (the main paths are periodic, 100 x 100 x 50):
+    the limiter reads neighbour factors through each boundary's index map."""
+    import dataclasses
     from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
     from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
     from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
-    nz = grid.nz
     gen = torch.Generator(device="cpu").manual_seed(3)
-    mub = grid.mub[:ny, :nx].cpu()
-    q = 2.0 * torch.rand((nt, nz, ny, nx), generator=gen) \
-        * (torch.rand((nt, nz, ny, nx), generator=gen) > 0.5)
-    ru = mub * 20.0 * torch.randn((nz, ny, nx), generator=gen)
-    rv = mub * 20.0 * torch.randn((nz, ny, nx), generator=gen)
-    ww = 100.0 * torch.randn((nz + 1, ny, nx), generator=gen)
-    ww[0] = 0.0
-    ww[-1] = 0.0
-    pt = 1e-3 * torch.randn((nt, nz, ny, nx), generator=gen)
-    q, ru, rv, ww, pt, mub = (a.to(dev) for a in (q, ru, rv, ww, pt, mub))
     worst = 0.0
-    for bc in (BCKind.OPEN, BCKind.SYMMETRIC, BCKind.PERIODIC):
-        hx = HaloOps(bc_x=bc, bc_y=bc)
+    cases = tracer_boundary_cases()
+    for nz, ny, nx, bc_x, bc_y in cases:
+        g = dataclasses.replace(grid, rdnw=grid.rdnw[:nz].contiguous())
+        mub = float(grid.mub.mean()) * (0.995 + 0.01 * torch.rand((ny, nx), generator=gen))
+        q = 2.0 * torch.rand((nt, nz, ny, nx), generator=gen) \
+            * (torch.rand((nt, nz, ny, nx), generator=gen) > 0.5)
+        ru = mub * 20.0 * torch.randn((nz, ny, nx), generator=gen)
+        rv = mub * 20.0 * torch.randn((nz, ny, nx), generator=gen)
+        ww = 100.0 * torch.randn((nz + 1, ny, nx), generator=gen)
+        ww[0] = 0.0
+        ww[-1] = 0.0
+        pt = 1e-3 * torch.randn((nt, nz, ny, nx), generator=gen)
+        q, ru, rv, ww, pt, mub = (a.to(dev) for a in (q, ru, rv, ww, pt, mub))
+        hx = HaloOps(bc_x=BCKind(bc_x), bc_y=BCKind(bc_y))
         args = (hx.pad(q, 3), mub * q, hx.pad(ru, 3), hx.pad(rv, 3), ww, mub,
-                1.001 * mub, grid, hx, 6.0)
-        out = tracers_kernel.advect_tracers(*args, pt=pt, pd=True, clip=True)
-        ref = tracers_kernel.advect_tracers_reference(*args, pt=pt, pd=True, clip=True)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max() / q.abs().max())
-        worst = max(worst, err)
-        if not err <= 1e-5:
-            raise RuntimeError(f"advect_tracers on {bc.value} boundaries disagrees "
-                               f"with its plain version: {err}")
-    print(f"advect_tracers (kernel) vs plain with the limiter on open, symmetric and "
-          f"periodic boundaries at ({nt}, {nz}, {ny}, {nx}): max|d|/max|q| = {worst:.3g} "
-          f"(limit 1e-5)")
+                1.001 * mub, g, hx, 6.0)
+        for pd in (False, True):
+            out = tracers_kernel.advect_tracers(*args, pt=pt, pd=pd, clip=pd)
+            ref = tracers_kernel.advect_tracers_reference(*args, pt=pt, pd=pd, clip=pd)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max() / q.abs().max())
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise RuntimeError(f"advect_tracers at (nt, nz, ny, nx) = {(nt, nz, ny, nx)}, "
+                                   f"x {bc_x}, y {bc_y}, limiter {pd} disagrees with its "
+                                   f"plain version: {err}")
+    print(f"advect_tracers (kernel) vs plain with and without the limiter at {len(cases)} "
+          f"small shapes and boundary kinds (nz 1-50, ny 1-17, nx 13, 33 and 300; open, symmetric, "
+          f"periodic): max|d|/max|q| = {worst:.3g} (limit 1e-5)")
+
+
+def _tracer_grids_per_step() -> int:
+    """advect_tracers counts grids: a step calls it without the limiter on
+    stages 0 and 1 and with it on stage 2."""
+    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
+    return 2 * tracers_kernel.GRIDS_PLAIN + tracers_kernel.GRIDS_LIMITED
 
 
 def _timed_ms(fn, n):
@@ -596,9 +629,7 @@ def slice_phase(cfg, grid, state, dev, steps, card):
         raise RuntimeError("tau_aer_sw is not positive where the bins are seeded")
     if not (0.0 < ssa[0] and ssa[1] <= 1.0):
         raise RuntimeError(f"ssa_aer_sw {ssa} outside (0, 1]")
-    # advect_tracers counts grids: one per call without the limiter (stages
-    # 0-1), three with it (stage 2)
-    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": 5 * steps,
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
             "mie_cheb_eval": 4, "ros2_integrate": 0}
     if launches != want:
         raise RuntimeError(f"kernel launches in the {steps}-step window {launches}, "
@@ -715,10 +746,10 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
         raise RuntimeError(f"config 4: OLR {olr} outside 100-400 W m-2")
     n_chem = steps // sim.chem_every
     # theta takes the single-scalar kernel on 3 stages; the 107 scalars take
-    # the multi-tracer kernel (1 + 1 + 3 grids per step); each chem call
-    # launches the Mie kernel once per bin and the ROS2 kernel once (its
-    # substeps are fused into the one launch)
-    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": 5 * steps,
+    # the multi-tracer kernel (two calls without the limiter and one with it
+    # per step); each chem call launches the Mie kernel once per bin and the
+    # ROS2 kernel once (its substeps are fused into the one launch)
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
             "mie_cheb_eval": 4 * n_chem, "ros2_integrate": n_chem}
     if launches != want:
         raise RuntimeError(f"config 4: kernel launches in the {steps}-step window "
@@ -756,10 +787,7 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
     print(f"profile of one config-4 main step: device busy {dev2_ms:.3f} ms in {n2} "
           f"kernels; against the unprofiled {ms_step:.3f} ms/step the device is busy "
           f"{100.0 * (dev2_ms + dev_ms / sim.chem_every) / ms_step:.1f}% (main step + a "
-          f"tenth of a chem call); advect_tracers grids: update "
-          f"{_per_call_us(rows2, 'update_kernel'):.2f} us, low factor "
-          f"{_per_call_us(rows2, 'low_factor'):.2f} us, high factor "
-          f"{_per_call_us(rows2, 'high_factor'):.2f} us per launch")
+          f"tenth of a chem call); advect_tracers grids: {_tracer_grids_us(rows2)}")
     for t_us, count, key in rows2[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
     return launches
@@ -791,6 +819,20 @@ def _per_call_us(rows, name):
     return us[0] if us else float("nan")
 
 
+def _tracer_grids_us(rows) -> str:
+    """Device time per launch of the multi-tracer kernel's grids, by the
+    mode in the kernel's name (0 without the limiter, 1 the r_hi grid, 2 the
+    limited update)."""
+    import re
+    names = {"0": "no limiter", "1": "r_hi", "2": "limited update"}
+    parts = []
+    for t, n, key in rows:
+        m = re.search(r"stage_kernel<(?:\(\w+\))?(\d)", key)
+        if m:
+            parts.append((m.group(1), f"{names.get(m.group(1), m.group(1))} {t / n:.2f} us x {n}"))
+    return ", ".join(p for _, p in sorted(parts)) or "not found in the profile"
+
+
 def profile_phase(sim, dev, ms_step):
     """Device time by kernel over 2 main steps and one chem call, and one
     Thomas solve."""
@@ -804,9 +846,7 @@ def profile_phase(sim, dev, ms_step):
           f"the device is busy {100.0 * dev_ms / 2 / ms_step:.1f}% "
           f"(profiled wall {wall_ms:.1f} ms); advect_scalar_5_3 "
           f"{_per_call_us(rows, 'advect_scalar_5_3'):.2f} us per call; advect_tracers "
-          f"grids: update {_per_call_us(rows, 'update_kernel'):.2f} us, low factor "
-          f"{_per_call_us(rows, 'low_factor'):.2f} us, high factor "
-          f"{_per_call_us(rows, 'high_factor'):.2f} us per launch")
+          f"grids: {_tracer_grids_us(rows)}")
     for t_us, count, key in rows[:12]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
     if not rows:

@@ -12,8 +12,12 @@ seeded inputs (both on the CPU).
   to 2e-3 on this one, which spans 215-305 K and day and night: float32
   sums taken in another order on a stiff system) are printed;
 - `integrate_adaptive` against the reference at the same bound;
-- the generated CUDA source: its shape, and that it is a pure function of
-  the mechanism;
+- the generated CUDA source: its shape, its version and shared-memory size,
+  and that it is a pure function of the mechanism; its statements, executed
+  one by one by a small evaluator (numpy float32, shared memory as rows that
+  must be written before they are read), bitwise equal to
+  `integrate_reference` — without a CUDA compiler the only guard on where
+  the generator stores each value and in which order it forms them;
 - a mechanism compiled from ``mechanisms/cbmz.eqn`` takes the same kernel;
   a small user mechanism gets its own;
 - on a CUDA card, the kernel against its plain version (skipped without
@@ -21,6 +25,7 @@ seeded inputs (both on the CPU).
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -176,7 +181,19 @@ def test_generated_source():
     a, b = ros2_kernel.generate_source(kin), ros2_kernel.generate_source(kin)
     assert a["text"] == b["text"]                          # a pure function of the tables
     text = a["text"]
-    assert 'extern "C" int ros2_integrate(' in text and "__global__ void ros2_kernel(" in text
+    assert 'extern "C" int ros2_integrate(' in text
+    assert "__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)\nros2_kernel(" in text
+    assert ros2_kernel.GENERATOR_VERSION == 3 and "(generator version 3)" in text
+    # k, c, the pivot reciprocals and the entries of L, one row of THREADS floats each
+    n_l = sum(len(ik) for _, ik, _, _ in ros2_kernel._symbolic(kin)["stages"])
+    assert a["shared_bytes"] == 4 * ros2_kernel.THREADS * (kin.nr + 2 * kin.ns + n_l) == 114432
+    assert f"#define SHARED_BYTES {a['shared_bytes']}\n" in text
+    assert f"#define THREADS {ros2_kernel.THREADS}\n" in text
+    assert f"#define BLOCKS_PER_SM {ros2_kernel.BLOCKS_PER_SM}\n" in text
+    # the resident blocks' shared memory fits an SM
+    assert ros2_kernel.BLOCKS_PER_SM * (a["shared_bytes"] + ros2_kernel.BLOCK_RESERVED_BYTES) \
+        <= ros2_kernel.SM_SHARED_BYTES
+    assert text.count("volatile") >= 3 and "cudaFuncAttributePreferredSharedMemoryCarveout" in text
     assert text.count("1.0f / ") == kin.ns                  # one pivot reciprocal per species
     assert text.count("fmaxf(") == 2 * kin.ns
     assert "for (int sub = 0; sub < n_sub; ++sub)" in text
@@ -188,6 +205,94 @@ def test_generated_source():
     src = build._source(name)
     assert os.path.dirname(src) == build.BUILD_DIR and open(src).read() == text
     assert name in build.lib_path(name)
+
+
+_OPERAND = r"(t\d+|[KCS]\(\d+\)|-?\d\.\d+e[+-]\d+f|dt|gdt|ngdt|h15|h05)"
+_STATEMENTS = (
+    ("bin", re.compile(rf"const float (t\d+) = {_OPERAND} ([-+*]) {_OPERAND};")),
+    ("recip", re.compile(rf"const float (t\d+) = 1\.0f / {_OPERAND};")),
+    ("max0", re.compile(rf"const float (t\d+) = fmaxf\({_OPERAND}, 0\.0f\);")),
+    ("store", re.compile(rf"([KCS]\(\d+\)) = {_OPERAND};")),
+)
+
+
+def _execute_generated(src, kin, conc, k, dt_total, n_sub):
+    """Run the statements between the generated source's substep markers on
+    numpy float32 arrays, as the kernel's thread would: K(j), C(i), S(n)
+    are rows of the block's shared memory (k first, then c, then the held
+    values), a row is read only after it was written, and a local is
+    declared once per substep."""
+    body = src["text"].split("// substep: begin")[1].split("// substep: end")[0]
+    lines = [ln.strip() for ln in body.strip().splitlines()]
+    assert len(lines) == src["statements"]
+    n_rows = src["shared_bytes"] // (4 * ros2_kernel.THREADS)
+    first = {"K": 0, "C": kin.nr, "S": 0}
+    limit = {"K": (0, kin.nr), "C": (kin.nr, kin.nr + kin.ns), "S": (kin.nr + kin.ns, n_rows)}
+    shared = {}
+
+    def row(ref):
+        r = first[ref[0]] + int(ref[2:-1])
+        assert limit[ref[0]][0] <= r < limit[ref[0]][1], ref
+        return r
+
+    for j in range(kin.nr):
+        shared[row(f"K({j})")] = k[j]
+    for i in range(kin.ns):
+        shared[row(f"C({i})")] = conc[i]
+    dt, gdt = ros2_kernel._step_scalars(dt_total, n_sub)
+    scalars = {"dt": dt, "gdt": gdt, "ngdt": -gdt, "h15": np.float32(1.5) * dt,
+               "h05": np.float32(0.5) * dt}
+    ops = {"+": np.add, "-": np.subtract, "*": np.multiply}
+    for _ in range(n_sub):
+        local = {}
+
+        def value(tok):
+            if tok in scalars:
+                return scalars[tok]
+            if tok[0] == "t":
+                return local[tok]
+            if tok[0] in "KCS":
+                return shared[row(tok)]           # KeyError: read before written
+            return np.float32(tok[:-1])
+
+        for ln in lines:
+            for kind, pat in _STATEMENTS:
+                m = pat.fullmatch(ln)
+                if m:
+                    break
+            else:
+                raise AssertionError(f"statement not understood: {ln}")
+            g = m.groups()
+            if kind == "store":
+                shared[row(g[0])] = value(g[1])
+                continue
+            assert g[0] not in local, g[0]
+            if kind == "bin":
+                out = ops[g[2]](value(g[1]), value(g[3]))
+            elif kind == "recip":
+                out = np.float32(1.0) / value(g[1])
+            else:
+                out = np.maximum(value(g[1]), np.float32(0.0))
+            assert np.asarray(out).dtype == np.float32, ln
+            local[g[0]] = out
+    return np.stack([np.broadcast_to(shared[row(f"C({i})")], conc[i].shape)
+                     for i in range(kin.ns)])
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+def test_generated_statements_execute_to_the_plain_version(n_sub):
+    kin = tgas._kinetics()
+    conc, k, *_ = polluted_start(7, 6)
+    src = ros2_kernel.generate_source(kin)
+    out = _execute_generated(src, kin, conc, k, 60.0, n_sub)
+    ref = ros2_kernel.integrate_reference(kin, _t(conc), _t(k), 60.0, n_sub).numpy()
+    assert float(np.abs(ref - conc).max()) > 1e6          # the step does something
+    np.testing.assert_array_equal(out, ref)                # bitwise: the same operations
+    # the held values take rows of their own after k and c, each written once per substep
+    stores = re.findall(r"^\s*S\((\d+)\) = ", src["text"], flags=re.M)
+    assert len(stores) == len(set(stores)) == src["shared_bytes"] // (4 * ros2_kernel.THREADS) \
+        - kin.nr - kin.ns
+    assert min(map(int, stores)) == kin.nr + kin.ns
 
 
 def _have_mechc():

@@ -5,12 +5,16 @@ boundaries, with and without the PD limiter and the clip), and, with a
 physics-tendency stack, against the reference's scan body (the per-tracer
 chain of `dycore/solve.py`) on periodic, open and symmetric boundaries.
 Tolerance: 1e-5 of max |q| (float32; the same operations in the same
-order, up to the TPU kernel's in-kernel factor recomputation).  The
+order, up to the TPU kernel's in-kernel factor recomputation).  The same
+comparison with the scan body at the small shapes that stress the CUDA
+kernel's tile and its ring of planes (1 to 5 levels, one row, rows that do
+not fill the last tile, rows narrower and wider than a warp).  The
 wrapper's input checks, and on the CUDA card the kernel against its plain
-version (skipped without one).
+version at all of these shapes (skipped without one).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -38,15 +42,37 @@ from test_torch_slice import jax_grid_to_port  # noqa: E402
 
 NT, NZ, NY, NX = 2, 6, 8, 12
 DTS = 6.0
+# (nz, ny, nx) that stress the CUDA kernel's ring of planes (fewer levels than
+# the ring holds), its tile (one row; rows that do not fill the last tile)
+# and its slots (rows narrower and wider than a warp; a row so wide that a
+# thread owns eight slots, not four)
+SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (2, 4, 300))
 
 
-@pytest.fixture(scope="module")
-def grids():
-    cfg = jcfg.Config(domain=jcfg.DomainConfig(nx=NX, ny=NY, nz=NZ, dx=1000.0,
+def _boundary_cases():
+    """(nz, ny, nx, bc_x, bc_y) over SHAPES and the three lateral boundary
+    kinds.  A boundary's halo of 3 needs 3 rows (periodic) or 4 (symmetric);
+    a single row is open in y and takes each kind in x."""
+    cases = []
+    for nz, ny, nx in SHAPES:
+        for bc in ("open", "symmetric", "periodic"):
+            need = {"open": 1, "periodic": 3, "symmetric": 4}[bc]
+            cases.append((nz, ny, nx, bc, bc if ny >= need else "open"))
+    return cases
+
+
+@functools.lru_cache(maxsize=None)
+def _grids(nz, ny, nx):
+    cfg = jcfg.Config(domain=jcfg.DomainConfig(nx=nx, ny=ny, nz=nz, dx=1000.0,
                                                dy=800.0, ztop=17000.0,
                                                p_top=8000.0))
     jg = jmake_grid(cfg, soundings.weisman_klemp_theta())
     return jg, jax_grid_to_port(jg)
+
+
+@pytest.fixture(scope="module")
+def grids():
+    return _grids(NZ, NY, NX)
 
 
 def _max_rel(ref, out, q):
@@ -58,12 +84,14 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.float32, copy=True))
 
 
-def _inputs(grid, seed=0):
-    """Interior fields: sparse tracers (half the cells empty, so the PD
-    limiter acts), coupled winds of ~20 m/s and vertical Courant ~0.3, the
-    stage and new column masses, physics tendencies."""
+def _inputs(grid, seed=0, nt=NT):
+    """Interior fields on `grid`: sparse tracers (half the cells empty, so
+    the PD limiter acts), coupled winds of ~20 m/s and vertical Courant
+    ~0.3, the stage and new column masses, physics tendencies."""
     rng = np.random.default_rng(seed)
     mub = np.asarray(grid.mub.numpy(), np.float64)
+    NZ, (NY, NX) = grid.nz, mub.shape
+    NT = nt
     q = rng.uniform(0.0, 2.0, (NT, NZ, NY, NX)) * (rng.uniform(size=(NT, NZ, NY, NX)) > 0.5)
     mu0 = mub * rng.uniform(0.995, 1.005, mub.shape)
     mu_full = mub * rng.uniform(0.995, 1.005, mub.shape)
@@ -78,8 +106,8 @@ def _inputs(grid, seed=0):
     return {k: v.astype(np.float32) for k, v in f.items()}
 
 
-def _port(tg, f, bc, pd, clip, pt=True):
-    hx = THalo(bc_x=TBC(bc), bc_y=TBC(bc))
+def _port(tg, f, bc, pd, clip, pt=True, bc_y=None):
+    hx = THalo(bc_x=TBC(bc), bc_y=TBC(bc_y or bc))
     ru_pad, rv_pad = hx.pad(_t(f["ru"]), 3), hx.pad(_t(f["rv"]), 3)
     return tracers_kernel.advect_tracers(
         hx.pad(_t(f["q"]), 3), _t(f["phi"]), ru_pad, rv_pad, _t(f["ww"]),
@@ -109,15 +137,15 @@ def test_plain_matches_pallas_interpret(grids, pd, clip):
         assert float(out.min()) >= -1e-6 * float(np.abs(f["q"]).max())
 
 
-def _scan_body(jg, f, bc, pd, clip):
+def _scan_body(jg, f, bc, pd, clip, bc_y=None):
     """The reference's scan body (solve.py), tracer by tracer."""
-    hx = JHalo(bc_x=JBC(bc), bc_y=JBC(bc))
+    hx = JHalo(bc_x=JBC(bc), bc_y=JBC(bc_y or bc))
     q_pad = hx.pad(jnp.asarray(f["q"]), 3)
     ru, rv, ww = hx.pad(jnp.asarray(f["ru"]), 3), hx.pad(jnp.asarray(f["rv"]), 3), \
         jnp.asarray(f["ww"])
     mu_full, mu_new = jnp.asarray(f["mu_full"]), jnp.asarray(f["mu_new"])
     out = []
-    for i in range(NT):
+    for i in range(f["q"].shape[0]):
         phi_q, pt_q = jnp.asarray(f["phi"][i]), jnp.asarray(f["pt"][i])
         fx, fy, fz = jadv.scalar_fluxes(q_pad[i], ru, rv, ww, 5, 3)
         if pd:
@@ -137,6 +165,24 @@ def test_plain_with_tendencies_matches_scan_body(grids, bc, pd):
     want = _scan_body(jg, f, bc, pd, clip=pd)
     out = _port(tg, f, bc, pd, clip=pd)
     assert _max_rel(want, out, f["q"]) <= 1e-5
+
+
+@pytest.mark.parametrize("pd", [False, True])
+@pytest.mark.parametrize("case", _boundary_cases(), ids=lambda c: "-".join(map(str, c)))
+def test_plain_matches_scan_body_at_tile_and_ring_shapes(case, pd):
+    """What the CUDA kernel is held to, against the reference, where the
+    kernel's ring (nz below its depth), tile (ny = 1, a ragged last tile)
+    and slots (nx = 13, 33) are stressed, on every boundary kind."""
+    nz, ny, nx, bc_x, bc_y = case
+    jg, tg = _grids(nz, ny, nx)
+    f = _inputs(tg, seed=4 + nz)
+    assert f["q"].shape == (NT, nz, ny, nx)
+    want = _scan_body(jg, f, bc_x, pd, clip=pd, bc_y=bc_y)
+    out = _port(tg, f, bc_x, pd, clip=pd, bc_y=bc_y)
+    assert tuple(out.shape) == want.shape
+    assert _max_rel(want, out, f["q"]) <= 1e-5
+    if pd:
+        assert float(out.min()) >= 0.0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "phi_shape", "ww_shape", "pt_shape",
@@ -168,24 +214,46 @@ def test_wrapper_rejects_bad_inputs(grids, bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bc", ["periodic", "open", "symmetric"])
-def test_kernel_matches_plain_on_gpu(grids, bc):
+@pytest.mark.parametrize("case", [(NZ, NY, NX, bc, bc) for bc in ("periodic", "open", "symmetric")]
+                         + _boundary_cases(), ids=lambda c: "-".join(map(str, c)))
+def test_kernel_matches_plain_on_gpu(case):
     """The CUDA kernel against its plain version on the card, with and
     without the limiter: the build uses --fmad=false, so the two round
     alike; the bound is 1e-5 of max |q|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, tg = grids
+    nz, ny, nx, bc_x, bc_y = case
+    _, tg = _grids(nz, ny, nx)
     dev = torch.device("cuda")
     g = tg.to(dev)
-    hx = THalo(bc_x=TBC(bc), bc_y=TBC(bc))
-    f = {k: _t(v).to(dev) for k, v in _inputs(tg, seed=3).items()}
+    hx = THalo(bc_x=TBC(bc_x), bc_y=TBC(bc_y))
+    f = {k: _t(v).to(dev) for k, v in _inputs(tg, seed=3, nt=3).items()}
     args = (hx.pad(f["q"], 3), f["phi"], hx.pad(f["ru"], 3), hx.pad(f["rv"], 3),
             f["ww"], f["mu_full"], f["mu_new"], g, hx, DTS)
+    grids = {False: tracers_kernel.GRIDS_PLAIN, True: tracers_kernel.GRIDS_LIMITED}
     for pd in (False, True):
         n0 = tracers_kernel.advect_tracers.launches
         out = tracers_kernel.advect_tracers(*args, pt=f["pt"], pd=pd, clip=pd)
         ref = tracers_kernel.advect_tracers_reference(*args, pt=f["pt"], pd=pd, clip=pd)
         torch.cuda.synchronize()
-        assert tracers_kernel.advect_tracers.launches == n0 + (3 if pd else 1)
+        assert tracers_kernel.advect_tracers.launches == n0 + grids[pd]
         assert float((out - ref).abs().max() / f["q"].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_a_row_too_wide_on_gpu():
+    """A tile spans the x row: a row that no tile of two rows can hold in a
+    block's shared memory raises instead of launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    nz, ny, nx = 2, 4, 1200
+    dev = torch.device("cuda")
+    _, tg = _grids(nz, ny, 13)
+    g = tg.to(dev)
+    hx = THalo()
+    z = torch.zeros((1, nz, ny, nx), device=dev)
+    mu = torch.ones((ny, nx), device=dev)
+    with pytest.raises(ValueError, match="too wide"):
+        tracers_kernel.advect_tracers(hx.pad(z, 3), z, hx.pad(z[0], 3), hx.pad(z[0], 3),
+                                      torch.zeros((nz + 1, ny, nx), device=dev), mu, mu, g,
+                                      hx, DTS, pd=True, clip=True)

@@ -8,23 +8,53 @@ the symbolic-LU pattern of `chem.gas._SparseKinetics`, the unrolled sparse LU
 with diagonal pivots, two triangular solve pairs, clip at >= 0.
 
 Design for Hopper.  The step is one straight-line program of a few thousand
-dependent scalar operations with ~nnz values live at once per cell, so the
-kernel is CUDA C++ with one thread per cell and every value a `float`
-local: `nvcc` allocates registers per thread and spills the rest to local
-memory (L1-backed).  The source is *generated* from the mechanism's
-symbolic lists (`generate_source`), so a mechanism compiled from a ``.eqn``
-file gets the same kind of kernel; it is written into the package's
-``build/`` directory, named by a hash of the lists and the generator's
-version, and built by `ops.build` at first use.  gamma*dt and dt are
-arguments, so one build serves every time step.  The loop over the substeps
-is inside the kernel: conc and k are read once and conc written once per
-call, (2 ns + nr) * 4 bytes per cell, which is the kernel's bytes bound;
-(ns, ncell) row-major puts consecutive cells at consecutive addresses, so
-the loads coalesce without a transpose, and a bounds check replaces padding.
+dependent scalar operations per cell, and it wants about 700 values live:
+the 469 of the LU, the 110 rate constants, the step-start concentrations,
+the stage vectors.  A thread has at most 255 registers, so what bounds the
+kernel on this card is neither its bytes nor its arithmetic but where the
+values that do not fit in registers go, and how long a warp waits for them:
+with every value a local, the compiler's schedule keeps ~640 of them on a
+2.5 KB stack per thread, and at the 8 warps an SM can hold at 255 registers
+each warp starts one instruction in ~19 cycles.  So the generator
+(`generate_source`) decides where the long-lived values live and when the
+others come to life:
 
-One walker (`_walk_step`) holds the operation order — rates, f0, dv,
-assembly, LU, solve, stage 2, clip — and runs on two backends: `_Emit`
-writes the CUDA statements, `_Eager` executes them on (ncell,) tensors.
+- the rate constants and the concentrations, live across the whole call,
+  and the values that `_walk_step` hands to `hold` (the pivot reciprocals
+  and the entries of L: final once formed, read again only in the solves)
+  are in shared memory, laid out ``[value][thread]`` (a warp reads
+  consecutive banks), and are read where they are used (``K(j)``, ``C(i)``,
+  ``S(n)`` in the statements).  Each thread touches only its own column, so
+  the kernel needs no barrier.  The accesses are ``volatile``: otherwise the
+  compiler forwards a stored value to its later reads, keeps it in a
+  register after all and spills it (measured: the stack does not shrink);
+- what the LU works on (the entries of U and the trailing matrix) stays in
+  `float` locals;
+- `_walk_step` orders independent statements to shorten live ranges: an
+  entry of A is assembled where the LU first touches it, and the stage-1
+  right-hand side is formed after the LU, just before the solve that
+  consumes it.  It never reassociates;
+- residency is chosen, not inherited: `THREADS` per block and
+  `BLOCKS_PER_SM` resident blocks (``__launch_bounds__``, a persistent grid
+  of that many blocks per SM with a grid-stride loop over the cells, and a
+  shared-memory carveout to match).  Two blocks of 64 threads hold 447 rows
+  of shared memory each (112 KB); the stack is ~500 bytes.
+
+The source is generated from the mechanism's symbolic lists, so a mechanism
+compiled from a ``.eqn`` file gets the same kind of kernel; it is written
+into the package's ``build/`` directory, named by a hash of the lists and
+the generator's version, and built by `ops.build` at first use.  gamma*dt
+and dt are arguments, so one build serves every time step.  The loop over
+the substeps is inside the kernel: conc and k are read once and conc
+written once per call, (2 ns + nr) * 4 bytes per cell, which is the
+kernel's bytes bound; (ns, ncell) row-major puts consecutive cells at
+consecutive addresses, so the loads coalesce without a transpose, and a
+bounds check replaces padding.
+
+One walker (`_walk_step`) holds the operation order — dv, assembly, LU,
+rates, solve, stage 2, clip — and runs on two backends: `_Emit`
+writes the CUDA statements, `_Eager` executes them on (ncell,) tensors, so
+the plain version follows any reordering by construction.
 The kernel is built with ``--fmad=false`` and IEEE division, so it and the
 plain version `integrate_reference` round at the same places.
 
@@ -47,8 +77,12 @@ import torch
 
 from wrfchem_arc_interactions_tpu_torch.ops import build
 
-GENERATOR_VERSION = 2
-THREADS = 64             # threads per block, baked into the generated source
+GENERATOR_VERSION = 3
+# Residency, baked into the generated source
+THREADS = 64             # threads per block
+BLOCKS_PER_SM = 2        # resident blocks per SM (launch bound, grid, carveout)
+SM_SHARED_BYTES = 233472     # an SM's shared memory, the base of the carveout's percentage
+BLOCK_RESERVED_BYTES = 1024  # shared memory the system keeps per resident block
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
 
@@ -133,16 +167,24 @@ class _Eager:
     def max0(a):
         return torch.clamp(a, min=0.0)
 
+    @staticmethod
+    def hold(a):
+        return a
+
 
 class _Emit:
     """Backend of `_walk_step` that writes one CUDA statement per operation:
-    values are the names of `float` locals or float literals.  Counts the
-    floating-point operations whose operands are not all literals."""
+    values are the names of `float` locals, float literals or references to
+    the thread's column of shared memory (``K(j)``, ``C(i)``, a held value's
+    ``S(n)``).  Counts the floating-point operations whose operands are not
+    all literals."""
 
-    def __init__(self):
+    def __init__(self, first_row: int):
         self.lines: List[str] = []
         self.n = 0
         self.flops = 0
+        self.first_row = first_row     # shared-memory rows of k and c come first
+        self.held = 0                  # rows of held values after them
 
     @staticmethod
     def lit(x: float) -> str:
@@ -171,11 +213,20 @@ class _Emit:
     def max0(self, a):
         return self._new(f"fmaxf({a}, 0.0f)", a)
 
+    def hold(self, a):
+        """Move value `a` to a row of shared memory of its own and return
+        the reference that reads it back."""
+        ref = f"S({self.first_row + self.held})"
+        self.held += 1
+        self.lines.append(f"{ref} = {a};")
+        return ref
+
 
 def _walk_step(sym: dict, B, c: list, kr: list, dt, gdt, ngdt, h15, h05) -> list:
-    """One ROS2 substep in the operation order of the reference's kernel
-    generator, on backend `B`: c (ns values), kr (nr values) -> ns new values.
-    dt, gdt = gamma*dt, ngdt = -gdt, h15 = 1.5 dt, h05 = 0.5 dt."""
+    """One ROS2 substep, the operations of the reference's kernel generator
+    with independent statements ordered to shorten live ranges, on backend
+    `B`: c (ns values), kr (nr values) -> ns new values.  dt, gdt = gamma*dt,
+    ngdt = -gdt, h15 = 1.5 dt, h05 = 0.5 dt."""
     ns, nr = sym["ns"], sym["nr"]
 
     def coef_times(coef, x):
@@ -199,41 +250,53 @@ def _walk_step(sym: dict, B, c: list, kr: list, dt, gdt, ngdt, h15, h05) -> list
             f.append(acc if acc is not None else B.lit(0.0))
         return f
 
-    f0 = prod_rates(c)
     # dv_j/dc_l pairs and the Jacobian entries they sum into
-    dv = []
-    for pid in range(len(sym["p_rxn"])):
-        d = coef_times(sym["p_coef"][pid], kr[sym["p_rxn"][pid]])
-        if sym["p_oth"][pid] != ns:
-            d = B.mul(d, c[sym["p_oth"][pid]])
-        dv.append(d)
+    dv = [None] * len(sym["p_rxn"])
 
-    # assemble A = I - gamma dt J on the LU pattern (fill positions start at
-    # 0, untouched diagonals at 1)
+    def pair(pid):
+        if dv[pid] is None:
+            d = coef_times(sym["p_coef"][pid], kr[sym["p_rxn"][pid]])
+            if sym["p_oth"][pid] != ns:
+                d = B.mul(d, c[sym["p_oth"][pid]])
+            dv[pid] = d
+        return dv[pid]
+
+    # A = I - gamma dt J on the LU pattern (fill positions start at 0,
+    # untouched diagonals at 1).  An entry is assembled where the LU first
+    # touches it, not before: its live range starts there.
+    entry_of = {p: e for e, p in enumerate(sym["jac_pos"])}
     vals = [None] * sym["nnz"]
-    for e, terms in enumerate(sym["jac_terms"]):
-        acc = None
-        for (pid, coef) in terms:
-            t = coef_times(coef, dv[pid])
-            acc = t if acc is None else B.add(acc, t)
-        p = sym["jac_pos"][e]
-        vals[p] = B.sub(B.lit(1.0), B.mul(gdt, acc)) if p in sym["diag_pos"] \
-            else B.mul(ngdt, acc)
-    for p in range(sym["nnz"]):
-        if vals[p] is None:
-            vals[p] = B.lit(1.0 if p in sym["diag_pos"] else 0.0)
 
-    # sparse LU with diagonal pivots (static unrolled fill schedule)
+    def assemble(p):
+        if p not in entry_of:
+            return B.lit(1.0 if p in sym["diag_pos"] else 0.0)
+        acc = None
+        for (pid, coef) in sym["jac_terms"][entry_of[p]]:
+            t = coef_times(coef, pair(pid))
+            acc = t if acc is None else B.add(acc, t)
+        return B.sub(B.lit(1.0), B.mul(gdt, acc)) if p in sym["diag_pos"] \
+            else B.mul(ngdt, acc)
+
+    def touch(p):
+        if vals[p] is None:
+            vals[p] = assemble(p)
+        return vals[p]
+
+    # sparse LU with diagonal pivots (static unrolled fill schedule).  The
+    # pivot reciprocals and the entries of L are final once formed and are
+    # not read again before the solves: they are held (in shared memory).
     invd = [None] * ns
     for kk, (pkk, ik, kj, upd) in enumerate(sym["stages"]):
-        idk = B.recip(vals[pkk])
-        invd[kk] = idk
+        idk = B.recip(touch(pkk))
+        invd[kk] = B.hold(idk)
+        for pkj in kj:                  # row kk of U is final here
+            touch(pkj)
         for a, pik in enumerate(ik):
-            lik = B.mul(vals[pik], idk)
-            vals[pik] = lik
+            lik = B.mul(touch(pik), idk)
+            vals[pik] = B.hold(lik)
             for b, pkj in enumerate(kj):
                 pu = upd[a][b]
-                vals[pu] = B.sub(vals[pu], B.mul(lik, vals[pkj]))
+                vals[pu] = B.sub(touch(pu), B.mul(lik, vals[pkj]))
 
     def solve(b):
         y = [None] * ns
@@ -253,7 +316,9 @@ def _walk_step(sym: dict, B, c: list, kr: list, dt, gdt, ngdt, h15, h05) -> list
             out[sym["perm"][q]] = x[q]
         return out
 
-    k1 = solve(f0)
+    # the stage-1 right-hand side is formed here, after the LU, so that it
+    # is not live while the LU runs
+    k1 = solve(prod_rates(c))
     c1 = [B.max0(B.add(c[i], B.mul(dt, k1[i]))) for i in range(ns)]
     f1 = prod_rates(c1)
     k2 = solve([B.sub(f1[i], B.mul(B.lit(2.0), k1[i])) for i in range(ns)])
@@ -286,71 +351,116 @@ def integrate_reference(kin, conc: torch.Tensor, k: torch.Tensor, dt_total: floa
 
 
 def generate_source(kin) -> Dict[str, object]:
-    """The CUDA source of the kernel for `kin`'s mechanism:
-    {"text", "flops_per_substep", "statements"}."""
+    """The CUDA source of the kernel for `kin`'s mechanism: {"text",
+    "flops_per_substep", "statements", "shared_bytes"} (`shared_bytes` per
+    block).  Between the lines ``// substep: begin`` and ``// substep: end``
+    the text holds one substep as statements ``const float tN = <expr>;`` and
+    ``<shared reference> = <value>;``."""
     sym = _symbolic(kin)
     ns, nr = sym["ns"], sym["nr"]
-    em = _Emit()
-    new_c = _walk_step(sym, em, [f"c{i}" for i in range(ns)],
-                       [f"k{j}" for j in range(nr)], "dt", "gdt", "ngdt", "h15", "h05")
-    body = "\n".join("        " + ln for ln in em.lines)
-    load_c = "\n".join(f"    float c{i} = conc[(size_t){i} * n + cell];" for i in range(ns))
-    load_k = "\n".join(f"    const float k{j} = k[(size_t){j} * n + cell];"
-                       for j in range(nr))
-    carry = "\n".join(f"        c{i} = {new_c[i]};" for i in range(ns))
-    store = "\n".join(f"    out[(size_t){i} * n + cell] = c{i};" for i in range(ns))
+    em = _Emit(first_row=nr + ns)
+    new_c = _walk_step(sym, em, [f"C({i})" for i in range(ns)],
+                       [f"K({j})" for j in range(nr)], "dt", "gdt", "ngdt", "h15", "h05")
+    # the new concentrations are all formed before the first is stored
+    em.lines.extend(f"C({i}) = {new_c[i]};" for i in range(ns))
+    body = "\n".join("            " + ln for ln in em.lines)
+    shared_bytes = 4 * THREADS * (nr + ns + em.held)
+    carveout = min(100, -(-100 * BLOCKS_PER_SM * (shared_bytes + BLOCK_RESERVED_BYTES)
+                          // SM_SHARED_BYTES))
     text = f"""// Generated by ops/ros2_kernel.py (generator version {GENERATOR_VERSION}); do not edit.
 // n_sub two-stage Rosenbrock (ROS2) substeps of a {ns}-species, {nr}-reaction
-// mechanism per cell on its symbolic sparse LU ({sym['nnz']} nonzeros).
-// One thread per cell; conc (ns, ncell), k (nr, ncell), out (ns, ncell) are
-// row-major float32, so neighbouring threads read neighbouring addresses.
-// Every value is a float local (registers, the rest spilled to local
-// memory); {em.flops} floating-point operations per substep.
+// mechanism per cell on its symbolic sparse LU ({sym['nnz']} nonzeros);
+// {em.flops} floating-point operations per substep.
 // Replaces the TPU kernel ops/pallas_ros2.py::integrate_pallas.
-// Bound by bytes when the substeps are few: (2 ns + nr) * 4 B per cell.
+// Bound by bytes when the substeps are few: (2 ns + nr) * 4 B per cell.  What
+// costs time on the card is where the ~700 live values of a substep go that
+// do not fit a thread's 255 registers.  The rate constants K(j), the
+// concentrations C(i) and the {em.held} held values S(n) (pivot reciprocals,
+// entries of L) live in shared memory, [value][thread], each thread in its
+// own column (no barrier, consecutive banks), read through volatile accesses
+// so that the compiler does not keep them in registers after all; the rest
+// of the LU are float locals, each entry of A assembled at its first use.
+// {THREADS} threads per block and {BLOCKS_PER_SM} resident blocks per SM (a persistent
+// grid with a grid-stride loop over the cells, a shared-memory carveout of
+// {carveout}% of the SM).
+// conc (ns, ncell), k (nr, ncell), out (ns, ncell) are row-major float32, so
+// neighbouring threads read neighbouring addresses.
 #include <cuda_runtime.h>
 
-__global__ void ros2_kernel(const float* __restrict__ conc, const float* __restrict__ k,
-                            float* __restrict__ out, int ncell, int n_sub,
-                            float dt, float gdt)
+#define THREADS {THREADS}
+#define BLOCKS_PER_SM {BLOCKS_PER_SM}
+#define NS {ns}
+#define NR {nr}
+#define SHARED_BYTES {shared_bytes}
+#define K(j) ((volatile float*)sh)[(j) * THREADS + threadIdx.x]
+#define C(i) ((volatile float*)sh)[(NR + (i)) * THREADS + threadIdx.x]
+#define S(n) ((volatile float*)sh)[(n) * THREADS + threadIdx.x]
+
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+ros2_kernel(const float* __restrict__ conc, const float* __restrict__ k,
+            float* __restrict__ out, int ncell, int n_sub, float dt, float gdt)
 {{
-    const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-    if (cell >= ncell) return;
+    extern __shared__ float sh[];
     const size_t n = (size_t)ncell;
     const float ngdt = -gdt;
     const float h15 = 1.5f * dt;
     const float h05 = 0.5f * dt;
-{load_c}
-{load_k}
 #pragma unroll 1
-    for (int sub = 0; sub < n_sub; ++sub) {{
+    for (size_t base = (size_t)blockIdx.x * THREADS; base < n;
+         base += (size_t)gridDim.x * THREADS) {{
+        const size_t cell = base + threadIdx.x;
+        if (cell >= n) continue;
+#pragma unroll
+        for (int j = 0; j < NR; ++j) K(j) = k[(size_t)j * n + cell];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) C(i) = conc[(size_t)i * n + cell];
+#pragma unroll 1
+        for (int sub = 0; sub < n_sub; ++sub) {{
+            // substep: begin
 {body}
-{carry}
+            // substep: end
+        }}
+#pragma unroll
+        for (int i = 0; i < NS; ++i) out[(size_t)i * n + cell] = C(i);
     }}
-{store}
 }}
 
 extern "C" int ros2_integrate(const float* conc, const float* k, float* out, int ncell,
                               int n_sub, float dt, float gdt, cudaStream_t stream)
 {{
-    const int blocks = (ncell + {THREADS} - 1) / {THREADS};
-    ros2_kernel<<<blocks, {THREADS}, 0, stream>>>(conc, k, out, ncell, n_sub, dt, gdt);
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(ros2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   SHARED_BYTES);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(ros2_kernel,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout, {carveout});
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (ncell + THREADS - 1) / THREADS;
+    if (blocks > BLOCKS_PER_SM * sms) blocks = BLOCKS_PER_SM * sms;
+    ros2_kernel<<<blocks, THREADS, SHARED_BYTES, stream>>>(conc, k, out, ncell, n_sub, dt, gdt);
     return (int)cudaGetLastError();
 }}
 """
-    return {"text": text, "flops_per_substep": em.flops, "statements": len(em.lines)}
+    return {"text": text, "flops_per_substep": em.flops, "statements": len(em.lines),
+            "shared_bytes": shared_bytes}
 
 
 def register(kin) -> str:
     """Generate the kernel source for `kin`'s mechanism, hand it to
     `ops.build` and return the kernel's name there (``ros2_<hash>``: a hash
-    of the symbolic lists and the generator's version).  Idempotent."""
+    of the symbolic lists, the generator's version and its residency
+    constants).  Idempotent."""
     name = getattr(kin, "_ros2_kernel_name", None)
     if name is None:
         sym = _symbolic(kin)
         canon = repr(sorted((k, sorted(v) if isinstance(v, set) else v)
                             for k, v in sym.items()))
-        digest = hashlib.sha1(f"{GENERATOR_VERSION}|{canon}".encode()).hexdigest()[:12]
+        digest = hashlib.sha1(f"{GENERATOR_VERSION}|{THREADS}|{BLOCKS_PER_SM}|"
+                              f"{canon}".encode()).hexdigest()[:12]
         name = f"ros2_{digest}"
         src = generate_source(kin)
         build.register_generated(name, src["text"])

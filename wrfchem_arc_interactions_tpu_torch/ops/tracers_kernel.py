@@ -11,14 +11,24 @@ mu_new`` and optionally ``max(q_new, 0)``.  The tendency term is the
 config-3 physics tendency (diffusion) that every scalar carries; the
 limiter must see phi_old without it.
 
-The kernel (``csrc/advect_tracers.cu``) is memory-bound (~0.39 GB per call
-at nt = 47 and 100x100x50, 0.12 ms at 3.35 TB/s); its header states the
-design.  One call launches one grid without the limiter and three with it.
+The kernel (``csrc/advect_tracers.cu``) is bound by memory on paper (~0.39 GB
+per call at nt = 47 and 100x100x50, 0.12 ms at 3.35 TB/s); what costs time
+on the card is the instructions around the arithmetic.  So a block owns a
+tile of rows over the whole x row of one tracer and marches in z: planes of
+q, ru, rv (and r_hi) come by asynchronous copy into rings in shared memory,
+each thread owns a few fixed slots of the tile, and each face flux is
+computed once.  The limiter takes two grids (`GRIDS_LIMITED`): both form the
+low-order factor r_lo on the chip, the first writes the antidiffusive factor
+r_hi, the second reads it and writes the update.  Without the limiter one
+grid (`GRIDS_PLAIN`) does it all.  The source's header states the design in
+full.
+
+A tile spans the x row, so the row's width is limited by a block's shared
+memory (about 450 cells at 2 rows per tile); a wider row raises.
 
 `advect_tracers` launches the kernel for CUDA tensors and runs
 `advect_tracers_reference` for CPU tensors; it never falls back from one to
-the other.  ``advect_tracers.launches`` counts the grids launched: three
-for a call with the limiter, one without.
+the other.  ``advect_tracers.launches`` counts the grids launched.
 """
 
 from __future__ import annotations
@@ -35,7 +45,10 @@ from wrfchem_arc_interactions_tpu_torch.ops import build
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import PAD
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+GRIDS_PLAIN = 1          # grids of one call without the limiter
+GRIDS_LIMITED = 2        # ... with it: the r_hi grid and the update grid
+_ROW_TOO_WIDE = -1       # the C function's code for an x row no tile can hold
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _BC_CODE = {BCKind.PERIODIC: 0, BCKind.OPEN: 1, BCKind.SYMMETRIC: 2}
 
@@ -91,8 +104,6 @@ def _check(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, rdnw, pt, hx):
             raise ValueError(f"unsupported lateral boundary {bc}")
         if bc == BCKind.SYMMETRIC and n < 2:
             raise ValueError("a symmetric boundary needs at least 2 cells")
-    if nt * nz > 65535:
-        raise ValueError("nt * nz exceeds the kernel's grid z limit (65535)")
     return nt, nz, ny, nx
 
 
@@ -122,7 +133,6 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     out = torch.empty((nt, nz, ny, nx), dtype=torch.float32, device=q_pad.device)
-    r_lo = torch.empty_like(out) if pd else None
     r_hi = torch.empty_like(out) if pd else None
 
     def ptr(t):
@@ -132,13 +142,15 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
         stream = torch.cuda.current_stream(q_pad.device).cuda_stream
         err = fn(q_pad.data_ptr(), phi_old.data_ptr(), ptr(pt), ru_pad.data_ptr(),
                  rv_pad.data_ptr(), ww.data_ptr(), mu_full.data_ptr(),
-                 mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(r_lo), ptr(r_hi),
-                 out.data_ptr(), nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
+                 mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(r_hi), out.data_ptr(),
+                 nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
                  float(dts), int(pd), int(clip), _BC_CODE[hx.bc_x], _BC_CODE[hx.bc_y],
                  stream)
+    if err == _ROW_TOO_WIDE:
+        raise ValueError(f"nx = {nx} is too wide for a tile in shared memory")
     if err != 0:
         raise RuntimeError(f"advect_tracers launch failed: cudaError {err}")
-    advect_tracers.launches += 3 if pd else 1
+    advect_tracers.launches += GRIDS_LIMITED if pd else GRIDS_PLAIN
     return out
 
 
