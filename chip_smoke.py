@@ -10,11 +10,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    kernel, whose source ``ops/ros2_kernel.py`` generates from the CBM-Z
    tables into ``build/`` (one nvcc per source, all at once);
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the shapes the main paths give it (the multi-tracer kernel at config
-   3's 47 and config 4's 107 scalars, and at small shapes that stress its
-   tile and its ring of planes on all three boundary kinds; the ROS2 kernel
-   against its plain version at config 4's 500,000 cells and at 4,133
-   cells), timed with CUDA events, beside its bound;
+   at the shapes the main paths give it (the Mie evaluator on random and on
+   warp-coherent inputs; the multi-tracer kernel at config 3's 47 and config
+   4's 107 scalars, and at small shapes that stress its tile and its ring of
+   planes on all three boundary kinds; the ROS2 kernel against its plain
+   version at config 4's 500,000 cells and at 4,133 cells), timed with CUDA
+   events, beside its bound, with each library's build flags;
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -24,8 +25,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    finite fields, 0 < max w < 60 m/s, OLR in 100-400 W m-2, tau_aer_sw > 0
    where bins are seeded, ssa_aer_sw in (0, 1], and the exact kernel
    launch counts of the window; then the time of one rad call, one chem
-   call and one main step, each synchronised, and the rad call's peak
-   memory;
+   call and one main step, each synchronised, the rad call's peak memory,
+   and the scalar advection kernel bitwise against its plain version on
+   the inputs of one main step (so too in phases 5 and 8);
 5. slice 1's path (radiation and chemistry off): 10 steps, 9 launches of
    the fused advection kernel per step;
 6. a short profile of two config-3 steps and one chem call (device time by
@@ -41,7 +43,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    droplet number in at least 90% of the cells with cloud water,
    tau_aer_sw > 0, and the
    exact launch counts of all four kernels; then the synchronised phase
-   times and a profile of one chem call;
+   times, a profile of one chem call, and the Mie kernel on that call's own
+   inputs (distinct floor cells per warp, device time per bin, within
+   3.2e-4 of its plain version);
 9. config-4 cross-check: 3 steps of a small config 4 from noon UTC (both
    alarms every step) on the card against the CPU.
 
@@ -284,6 +288,22 @@ def _entry(name, launches, max_abs, ms, plain_ms, bound, source=None):
             "library_ms": None}
 
 
+def _flags(name) -> str:
+    """The nvcc flags of kernel `name`'s library, as a message says them."""
+    from wrfchem_arc_interactions_tpu_torch.ops import build
+    flags = build.nvcc_flags(name)
+    fmad = ("--fmad=false: no multiply-add contracted" if "--fmad=false" in flags
+            else "multiply-adds contracted (no --fmad=false)")
+    return f"built with {fmad} ({' '.join(flags)})"
+
+
+def _adv_plan(nz, ny, nx) -> dict:
+    """The grid the scalar advection kernel launches at (nz, ny, nx)."""
+    from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, build
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return adv_kernel.plan(build.load("advect_scalar_5_3"), nz, ny, nx, sms)
+
+
 def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx):
     from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel
     rng = np.random.default_rng(0)
@@ -307,7 +327,9 @@ def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx):
     max_abs = float((out - ref).abs().max())
     rel = max_abs / float(ref.abs().max())
     print(f"advect_scalar_5_3 (kernel) vs plain on the card: max|d| = {max_abs:.6g}, "
-          f"max|d|/max|ref| = {rel:.3g} (limit 1e-5; built with --fmad=false)")
+          f"max|d|/max|ref| = {rel:.3g} (limit 1e-5), bitwise equal "
+          f"{bool(torch.equal(out, ref))}; {_flags('advect_scalar_5_3')}; grid "
+          f"{_adv_plan(nz, ny, nx)}")
     if not rel <= 1e-5:
         raise RuntimeError(f"advect_scalar_5_3 disagrees with its plain version: {rel}")
     ms = _device_ms(lambda: adv_kernel.advect_scalar_5_3(*args), calls=20)
@@ -323,9 +345,85 @@ def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx):
     return _entry("advect_scalar_5_3", None, max_abs, ms, plain_ms, bound)
 
 
+def _coherent(shape, gen):
+    """Mie inputs whose runs of 32 elements (a warp's) each lie in one floor
+    cell of the (8, 10) grid, as neighbouring cells of one band mostly do on
+    the main path."""
+    n = int(np.prod(shape))
+    runs = -(-n // 32)
+    cell_nr = torch.randint(0, 7, (runs,), generator=gen).repeat_interleave(32)[:n]
+    cell_u = torch.randint(0, 9, (runs,), generator=gen).repeat_interleave(32)[:n]
+    nr_n = (cell_nr + torch.rand(n, generator=gen)) / 7.0
+    u = (cell_u + torch.rand(n, generator=gen)) / 9.0
+    t = 2.0 * torch.rand(n, generator=gen) - 1.0
+    return tuple(a.reshape(shape) for a in (nr_n, u, t))
+
+
+def cells_per_warp(nr_n, u):
+    """Distinct floor cells of the (8, 10) grid among each run of 32
+    consecutive elements (the lanes of one warp of the kernel's first
+    stride): a tensor of counts."""
+    ja = torch.floor(nr_n.reshape(-1) * 7.0).clamp(0, 6)
+    jb = torch.floor(u.reshape(-1) * 9.0).clamp(0, 8)
+    cell = (9 * ja + jb).nan_to_num(0.0)
+    n = cell.numel() // 32 * 32
+    srt = cell[:n].reshape(-1, 32).sort(dim=1).values
+    return 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1)
+
+
+def _mie_check(mie_kernel, label, nr_n, u, t):
+    """The kernel against its plain version on the same inputs: the errors."""
+    out = mie_kernel.cheb_eval(nr_n, u, t)
+    ref = mie_kernel.cheb_eval_reference(nr_n, u, t)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(o).all()) for o in out):
+        raise RuntimeError(f"mie_cheb_eval: non-finite output ({label})")
+    errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
+    print(f"mie_cheb_eval (kernel) vs plain on the card, {label} inputs at "
+          f"{tuple(t.shape)}: max|d| ln Qext {errs[0]:.3g}, ln Qsca {errs[1]:.3g}, g "
+          f"{errs[2]:.3g} (limit 3.2e-4); {_flags('mie_cheb_eval')}")
+    if not max(errs) <= 3.2e-4:
+        raise RuntimeError(f"mie_cheb_eval disagrees with its plain version ({label}): {errs}")
+    return errs
+
+
+def adv_on_path(step, label) -> int:
+    """The scalar advection kernel against its plain version, bitwise, on
+    the inputs of its calls in one main step of a path (`step` runs the
+    step): the number of calls compared."""
+    from wrfchem_arc_interactions_tpu_torch.dycore import solve
+    from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel
+    seen = []
+    inner = solve.advect_scalar_5_3
+
+    def recording(*args):
+        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return inner(*args)
+
+    solve.advect_scalar_5_3 = recording
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        solve.advect_scalar_5_3 = inner
+    if not seen:
+        raise RuntimeError(f"advect_scalar_5_3: no call in one step of {label}")
+    for args in seen:
+        out = adv_kernel.advect_scalar_5_3(*args)
+        ref = adv_kernel.advect_scalar_5_3_reference(*args)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"advect_scalar_5_3 on {label}'s inputs: max|d| "
+                               f"{float((out - ref).abs().max())}, not bitwise equal")
+    print(f"advect_scalar_5_3 (kernel) vs plain on the card, {label}'s own inputs: "
+          f"{len(seen)} calls of one main step, max|d| = 0 (bitwise equal)")
+    return len(seen)
+
+
 def kernel_mie(dev, nz, ny, nx, nband=30):
     """One bin's call at the main path's shape: (30 bands, nz, ny, nx)
-    elements, with the edges of both interpolation axes among them."""
+    elements, with the edges of both interpolation axes among them (random
+    inputs: a warp's lanes fall in many floor cells); then warp-coherent
+    inputs (a warp's lanes in one cell), timed likewise."""
     from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel
     gen = torch.Generator(device="cpu").manual_seed(1)
     shape = (nband, nz, ny, nx)
@@ -337,26 +435,72 @@ def kernel_mie(dev, nz, ny, nx, nband=30):
     t[:, :, 0, 20] = -1.0
     t[:, :, 0, 21] = 1.0
     nr_n, u, t = (a.contiguous().to(dev) for a in (nr_n, u, t))
-    out = mie_kernel.cheb_eval(nr_n, u, t)
-    ref = mie_kernel.cheb_eval_reference(nr_n, u, t)
-    torch.cuda.synchronize()
-    if not all(bool(torch.isfinite(o).all()) for o in out):
-        raise RuntimeError("mie_cheb_eval: non-finite output")
-    errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
-    print(f"mie_cheb_eval (kernel) vs plain on the card at {shape}: max|d| ln Qext "
-          f"{errs[0]:.3g}, ln Qsca {errs[1]:.3g}, g {errs[2]:.3g} (limit 3.2e-4)")
-    if not max(errs) <= 3.2e-4:
-        raise RuntimeError(f"mie_cheb_eval disagrees with its plain version: {errs}")
+    errs = _mie_check(mie_kernel, "random", nr_n, u, t)
     ms = _device_ms(lambda: mie_kernel.cheb_eval(nr_n, u, t), calls=5, trials=20)
     plain_ms = _profiled_ms(lambda: mie_kernel.cheb_eval_reference(nr_n, u, t))
     wall_ms = _wall_ms(lambda: mie_kernel.cheb_eval(nr_n, u, t))
     plain_wall_ms = _wall_ms(lambda: mie_kernel.cheb_eval_reference(nr_n, u, t), reps=2)
     bound = _mie_bound(t.numel())
-    print(f"mie_cheb_eval, {t.numel()} elements, device time per call: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-          f"{100.0 * bound[0] / ms:.1f}% of it); host wall per synchronised call: "
-          f"kernel {wall_ms:.4f} ms, plain {plain_wall_ms:.3f} ms")
-    return _entry("mie_cheb_eval", None, max(errs), ms, plain_ms, bound)
+    print(f"mie_cheb_eval, {t.numel()} elements, random inputs ({_cpw(nr_n, u)}), device "
+          f"time per call: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} "
+          f"ms ({bound[1]}, {100.0 * bound[0] / ms:.1f}% of it); host wall per synchronised "
+          f"call: kernel {wall_ms:.4f} ms, plain {plain_wall_ms:.3f} ms")
+    del nr_n, u, t
+    nr_c, u_c, t_c = (a.contiguous().to(dev) for a in _coherent(shape, gen))
+    errs_c = _mie_check(mie_kernel, "warp-coherent", nr_c, u_c, t_c)
+    ms_c = _device_ms(lambda: mie_kernel.cheb_eval(nr_c, u_c, t_c), calls=5, trials=20)
+    print(f"mie_cheb_eval, {t_c.numel()} elements, warp-coherent inputs "
+          f"({_cpw(nr_c, u_c)}), device time per call: kernel {ms_c:.4f} ms "
+          f"({100.0 * bound[0] / ms_c:.1f}% of the bound)")
+    entry = _entry("mie_cheb_eval", None, max(errs + errs_c), ms, plain_ms, bound)
+    entry.update(inputs="random", ms_warp_coherent=ms_c)
+    return entry
+
+
+def _cpw(nr_n, u) -> str:
+    c = cells_per_warp(nr_n, u).float()
+    return (f"{float(c.mean()):.2f} distinct floor cells per warp on average, "
+            f"{100.0 * float((c == 1).float().mean()):.1f}% of warps in one cell")
+
+
+def capture_mie_inputs(fn):
+    """Run `fn` (a chem call) with the Mie kernel's inputs recorded: the
+    list of (nr_n, u, t) of its calls, one per bin."""
+    from wrfchem_arc_interactions_tpu_torch.chem import optics
+    seen = []
+    inner = optics.cheb_eval
+
+    def recording(nr_n, u, t):
+        seen.append((nr_n.clone(), u.clone(), t.clone()))
+        return inner(nr_n, u, t)
+
+    optics.cheb_eval = recording
+    try:
+        fn()
+    finally:
+        optics.cheb_eval = inner
+    return seen
+
+
+def mie_on_path(chem_call, card):
+    """The Mie kernel on config 4's own inputs: the distinct floor cells per
+    warp of each bin's call (what decides whether the table loads are
+    broadcasts) and the kernel's device time per call on each bin's
+    inputs.  Returns {bin: numbers}."""
+    from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel
+    per_bin = {}
+    for b, (nr_n, u, t) in enumerate(capture_mie_inputs(chem_call), start=1):
+        c = cells_per_warp(nr_n, u).float()
+        errs = _mie_check(mie_kernel, f"config 4 bin {b}", nr_n, u, t)
+        ms = _device_ms(lambda: mie_kernel.cheb_eval(nr_n, u, t), calls=5, trials=20)
+        per_bin[b] = {"ms": ms, "elements": t.numel(), "max_abs_err": max(errs),
+                      "cells_per_warp_mean": float(c.mean()),
+                      "cells_per_warp_max": int(c.max()),
+                      "warps_in_one_cell": float((c == 1).float().mean())}
+        print(f"mie_cheb_eval on config 4's own inputs, bin {b} ({t.numel()} elements): "
+              f"{_cpw(nr_n, u)}, at most {int(c.max())}; kernel {ms:.4f} ms per call "
+              f"[{card}]")
+    return per_bin
 
 
 def kernel_tracers(dev, grid, nt):
@@ -661,6 +805,7 @@ def slice_phase(cfg, grid, state, dev, steps, card):
           f"{steps} = {main_ms + (rad_ms + chem_ms) / steps:.3f} ms; rad call peak "
           f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
           f"{base / 2**30:.3f} GiB held before it; columns are not chunked)")
+    adv_on_path(lambda: main(sim.state, sim.grid, t_now), "config 3")
     return sim, launches, ms_step
 
 
@@ -687,6 +832,7 @@ def slice1_phase(dev, card, steps=10):
         raise RuntimeError("slice 1's path: non-finite fields")
     print(f"slice 1's path (radiation and chemistry off): {steps} steps, "
           f"{wall / steps * 1e3:.3f} ms/step [{card}]; kernel launches {launches}")
+    adv_on_path(lambda: sim.advance(1), "slice 1's path")
     return launches
 
 
@@ -782,6 +928,7 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
           f"the main path's inputs")
     for t_us, count, key in rows[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    mie_path = mie_on_path(lambda: chem(sim.state, sim.grid, t_now), card)
     sim.sync()
     dev2_ms, n2, rows2 = _profile(lambda: sim.advance(1))     # step 107: main only
     print(f"profile of one config-4 main step: device busy {dev2_ms:.3f} ms in {n2} "
@@ -790,7 +937,8 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
           f"tenth of a chem call); advect_tracers grids: {_tracer_grids_us(rows2)}")
     for t_us, count, key in rows2[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
-    return launches
+    adv_on_path(lambda: sim.advance(1), "config 4")
+    return launches, mie_path
 
 
 def _profile(fn):
@@ -964,7 +1112,8 @@ def main(argv=None) -> int:
                            start_date="2000-06-20_12:00:00"), _seed, "config 3")
     del sim, grid, state
     torch.cuda.empty_cache()
-    launches4 = slice4_phase(dev, card, args.steps)
+    launches4, mie_path = slice4_phase(dev, card, args.steps)
+    entries["mie_cheb_eval"]["config4_inputs"] = mie_path
     torch.cuda.empty_cache()
     cross_check(dev, _cfg4(nx=32, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
                            start_date="2000-06-20_12:00:00"), _seed4, "config 4")

@@ -5,17 +5,28 @@ computes is otherwise checked only on the card.  Here a host C++ compiler
 builds the source itself against a stand-in for ``cuda_runtime.h``
 (``tests/cuda_emulation/cuda_runtime.h``: one host thread per CUDA thread,
 a barrier for ``__syncthreads()``, shared memory filled with NaNs before
-each block), after the few constructs it cannot parse are rewritten: the
-``<<<...>>>`` launch becomes a call, a ``cp.async`` copy an assignment, the
-``extern __shared__`` array a pointer.  Built with ``-ffp-contract=off`` the
-float arithmetic rounds as the card's does under ``--fmad=false``, so each
-kernel is held *bitwise* to its plain PyTorch version:
+each block, a warp shuffle as a block-wide exchange), after the few
+constructs it cannot parse are rewritten: the
+``<<<...>>>`` launch becomes a call, a ``cp.async`` copy an assignment (its
+commit and wait a no-op), the ``extern __shared__`` array a pointer.  Built
+with ``-ffp-contract=off`` the float arithmetic rounds as the card's does
+under ``--fmad=false``, so a kernel built with that flag is held *bitwise*
+to its plain PyTorch version:
 
+- ``csrc/advect_scalar_5_3.cu`` at small shapes that stress its z chunks
+  (ragged ones among them), its warps of 31 cells and the x faces they pass
+  by shuffle, and the rows a thread owns, on rows whose starts fall off 16
+  bytes;
 - ``csrc/advect_tracers.cu`` at the small shapes that stress its tile, its
   rings of planes and its slots, on every lateral boundary kind, with and
   without the limiter;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
   substeps over a few blocks of its persistent grid.
+
+``csrc/mie_cheb_eval.cu`` is built with multiply-add contraction
+(``-ffp-contract=fast``, as ``ops/build.py`` builds it without
+``--fmad=false``) and held to its plain version within 1e-5 on random,
+warp-coherent and edge inputs.
 
 What this cannot see: races (the host threads are few at a time), the
 card's alignment rules, and whether ``nvcc`` accepts the source.  Skipped
@@ -38,7 +49,9 @@ torch.set_num_threads(1)
 
 from wrfchem_arc_interactions_tpu_torch.chem import gas as tgas  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind  # noqa: E402
-from wrfchem_arc_interactions_tpu_torch.ops import build, ros2_kernel, tracers_kernel  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.ops import (  # noqa: E402
+    adv_kernel, build, mie_kernel, ros2_kernel, tracers_kernel,
+)
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps  # noqa: E402
 
 from test_torch_gas import polluted_start  # noqa: E402
@@ -47,17 +60,19 @@ from test_torch_tracers import _boundary_cases, _grids, _inputs, _t  # noqa: E40
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 _REWRITES = (
-    (r"extern __shared__ (?:__align__\(16\) )?float (\w+)\[\];", r"float* \1 = emu_smem;"),
+    (r"extern __shared__ (?:__align__\(16\) )?(float4?) (\w+)\[\];",
+     r"\1* \2 = reinterpret_cast<\1*>(emu_smem);"),
     (r"^.*__cvta_generic_to_shared.*$", ""),
     (r"^.*cp\.async\.ca\.shared\.global.*$", "  *dst = *src;"),
     (r"^.*cp\.async\.cg\.shared\.global.*$", "  for (int e_ = 0; e_ < 4; ++e_) dst[e_] = src[e_];"),
-    (r"^.*cp\.async\.wait_all.*$", "  ;"),
+    (r"^.*cp\.async\.(?:wait_all|wait_group|commit_group).*$", "  ;"),
     (r"([\w<>, ]+?)<<<([^,]+), ([^,]+), ([^,]+), \w+>>>\((.*)\);", r"emu_launch(\1, \2, \3, \4, \5);"),
 )
 
 
-def _emulated(text: str, name: str, tmp) -> ctypes.CDLL:
-    """Rewrite CUDA source `text` for a host compiler, build and load it."""
+def _emulated(text: str, name: str, tmp, contract: str = "off") -> ctypes.CDLL:
+    """Rewrite CUDA source `text` for a host compiler, build and load it;
+    `contract` is the host compiler's -ffp-contract setting."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -67,7 +82,7 @@ def _emulated(text: str, name: str, tmp) -> ctypes.CDLL:
     src, lib = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp, f"{name}.so")
     with open(src, "w") as f:
         f.write(text)
-    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-ffp-contract={contract}", "-fPIC", "-shared",
                     "-pthread", f"-I{os.path.join(HERE, 'cuda_emulation')}", "-o", lib, src],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(lib)
@@ -140,3 +155,172 @@ def test_emulated_ros2_kernel_is_bitwise_its_plain_version(ros2_lib, ncell, n_su
     assert err == 0
     assert float((ref - conc).abs().max()) > 1e6               # the step does something
     assert np.array_equal(out.numpy(), ref.numpy())
+
+
+# the Mie kernel's tile paths: as built (a tile is sorted by floor cell when
+# enough of its warp-runs are mixed), every tile sorted, none sorted
+MIE_PATHS = {"as_built": None, "sorted": -1, "unsorted": 1 << 20}
+
+
+@pytest.fixture(scope="module")
+def mie_libs(tmp_path_factory):
+    """The Mie evaluator as its library is built: with multiply-add
+    contraction (``-ffp-contract=fast``; its recurrences call fmaf); also
+    with its tile sort forced on and off (`MIE_PATHS`)."""
+    with open(build._source("mie_cheb_eval")) as f:
+        text = f.read()
+    tmp = str(tmp_path_factory.mktemp("emu"))
+    libs = {}
+    for path, sort_min in MIE_PATHS.items():
+        src = text
+        if sort_min is not None:
+            src, n = re.subn(r"constexpr int SORT_MIN = [^;]+;",
+                             f"constexpr int SORT_MIN = {sort_min};", text)
+            assert n == 1
+        lib = _emulated(src, f"mie_cheb_eval_{path}", tmp, contract="fast")
+        lib.mie_cheb_eval.argtypes = mie_kernel._ARGTYPES
+        lib.mie_cheb_eval.restype = ctypes.c_int
+        libs[path] = lib
+    return libs
+
+
+def _mie_case(kind, nband=3, n=700):
+    """Inputs of the Mie evaluator: `random` (every element anywhere on the
+    grid), `coherent` (runs of 32 elements, a warp's worth, in one floor
+    cell) or `edges` (chip_smoke.py's edge elements: u = 0, nr_n = 1, u = 1,
+    t = -1 and 1, among random ones)."""
+    rng = np.random.default_rng({"random": 11, "coherent": 12, "edges": 13}[kind])
+    shape = (nband, n)
+    nr_n, u = rng.uniform(0, 1, shape), rng.uniform(0, 1, shape)
+    t = rng.uniform(-1, 1, shape)
+    if kind == "coherent":
+        runs = -(-n // 32)
+        cell_nr = np.repeat(rng.integers(0, 7, (nband, runs)), 32, axis=1)[:, :n]
+        cell_u = np.repeat(rng.integers(0, 9, (nband, runs)), 32, axis=1)[:, :n]
+        nr_n = (cell_nr + rng.uniform(0, 1, shape)) / 7.0
+        u = (cell_u + rng.uniform(0, 1, shape)) / 9.0
+    elif kind == "edges":
+        u[:, :10] = 0.0
+        nr_n[:, 10:20] = 1.0
+        u[:, 15:25] = 1.0
+        t[:, 30] = -1.0
+        t[:, 31] = 1.0
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (nr_n, u, t))
+
+
+@pytest.mark.parametrize("path", list(MIE_PATHS))
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("kind", ["random", "coherent", "edges"])
+def test_emulated_mie_kernel_matches_its_plain_version(mie_libs, kind, blocks, path):
+    """Within 1e-5 in ln Q and g, not bitwise: the kernel fuses multiply-adds
+    and forms each coefficient from its four corners in another order than
+    the plain version's matrix product.  2,100 elements are three tiles of
+    1,024, the last one ragged: 3 blocks take one each, 1 block walks all
+    three.  Random and edge inputs take the sorted path as built, coherent
+    ones the unsorted path."""
+    lib = mie_libs[path]
+    nr_n, u, t = _mie_case(kind)
+    shape = mie_kernel.launch_shape(lib)
+    assert shape["tile"] == 1024
+    ref = mie_kernel.cheb_eval_reference(nr_n, u, t)
+    outs = tuple(torch.full_like(t, float("nan")) for _ in range(3))
+    table = mie_kernel.packed_table(torch.device("cpu"), shape["cell_stride"])
+    err = lib.mie_cheb_eval(table.data_ptr(), nr_n.data_ptr(), u.data_ptr(), t.data_ptr(),
+                            *(o.data_ptr() for o in outs), t.numel(), blocks, None)
+    assert err == 0
+    for name, o, r in zip(("ln_qext", "ln_qsca", "g"), outs, ref):
+        d = float((o - r).abs().max())
+        assert d <= 1e-5, (name, d)
+
+
+def test_emulated_mie_library_shape(mie_libs):
+    """The layout and launch constants the library exports: each cell of
+    the packed table an odd count of float4s past G's 90 rows (neighbouring
+    cells then fall in different 16-byte bank groups), and the blocks an SM
+    is to hold fit its 228 KB of shared memory with the table and a tile's
+    staging each (1 KB a block is the runtime's own)."""
+    shape = mie_kernel.launch_shape(mie_libs["as_built"])
+    stride = shape["cell_stride"]
+    assert stride % 2 == 1 and stride > 90
+    table = mie_kernel.packed_table(torch.device("cpu"), stride)
+    assert shape["smem_bytes"] > table.numel() * table.element_size()
+    assert shape["blocks_per_sm"] * (shape["smem_bytes"] + 1024) <= 228 * 1024
+    assert shape["tile"] % shape["threads"] == 0
+
+
+@pytest.fixture(scope="module")
+def adv_lib(tmp_path_factory):
+    with open(build._source("advect_scalar_5_3")) as f:
+        lib = _emulated(f.read(), "advect_scalar_5_3", str(tmp_path_factory.mktemp("emu")))
+    lib.advect_scalar_5_3.argtypes = adv_kernel._ARGTYPES
+    lib.advect_scalar_5_3.restype = ctypes.c_int
+    return lib
+
+
+# (nz, ny, nx) that stress the scalar kernel on the stand-in's 2 SMs: 1, 2,
+# 3 and 5 levels; z chunks that do not divide nz; an odd ny (a thread's
+# second row past the last) and a single row; warps whose 31 cells end
+# mid-row and rows that end mid-warp; rows of 19, 39 and 33 floats, whose
+# starts fall off 16 bytes, and of 16; the main path's width of 100
+ADV_SHAPES = ((1, 3, 13), (2, 11, 13), (3, 11, 33), (5, 11, 13), (2, 1, 13), (3, 6, 10),
+              (9, 5, 27), (5, 17, 100), (7, 9, 300), (50, 9, 13), (4, 2, 40), (23, 9, 40))
+
+
+def test_emulated_scalar_kernel_plans_cover_the_cases(adv_lib):
+    """The plans of `ADV_SHAPES` include ragged z chunks, several chunks
+    and several blocks of a plane at once, and warps of a plane that do not
+    fill their last block."""
+    plans = {s: adv_kernel.plan(adv_lib, *s, sms=2) for s in ADV_SHAPES}
+    for (nz, ny, nx), p in plans.items():
+        slots = -(-ny // p["rows_per_thread"]) * (nx + 1)
+        assert 31 * p["warps_per_plane"] >= slots - 1 > 31 * (p["warps_per_plane"] - 1)
+        assert p["blocks_per_plane"] == -(-p["warps_per_plane"] // (p["threads"] // 32))
+        assert p["chunks"] * p["kc"] >= nz > (p["chunks"] - 1) * p["kc"]
+    assert any(nz % p["kc"] for (nz, _, _), p in plans.items())
+    assert any(ny % p["rows_per_thread"] for (_, ny, _), p in plans.items())
+    assert any(p["blocks_per_plane"] > 1 and p["chunks"] > 2 for p in plans.values())
+    assert any(p["warps_per_plane"] % (p["threads"] // 32) for p in plans.values())
+    # the main path's grid on 132 SMs
+    assert adv_kernel.plan(adv_lib, 50, 100, 100, 132) == {
+        "rows_per_thread": 2, "warps_per_plane": 163, "blocks_per_plane": 41, "kc": 4,
+        "chunks": 13, "threads": 128, "blocks": 533}
+
+
+@pytest.mark.parametrize("shape", ADV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_scalar_kernel_is_bitwise_its_plain_version(adv_lib, shape):
+    """ww is random at the model top and the surface too: the kernel must
+    zero those faces itself, as the plain version does."""
+    nz, ny, nx = shape
+    rng = np.random.default_rng(nz * 1000 + ny * 10 + nx)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    q = put(300.0 + rng.normal(size=(nz, ny + 6, nx + 6)))
+    ru, rv = (put(1e6 * rng.normal(size=(nz, ny + 6, nx + 6))) for _ in range(2))
+    ww = put(1e3 * rng.normal(size=(nz + 1, ny, nx)))
+    rdnw = put(rng.uniform(-60, -40, nz))
+    ref = adv_kernel.advect_scalar_5_3_reference(q, ru, rv, ww, rdnw, 1e-3, 2e-3)
+    out = torch.full_like(ref, float("nan"))
+    err = adv_lib.advect_scalar_5_3(q.data_ptr(), ru.data_ptr(), rv.data_ptr(), ww.data_ptr(),
+                                    rdnw.data_ptr(), out.data_ptr(), nz, ny, nx, 1e-3, 2e-3,
+                                    None)
+    assert err == 0
+    assert float(ref.abs().max()) > 1.0
+    assert torch.equal(out, ref)
+
+
+def test_kernel_flags_enter_the_library_name(monkeypatch):
+    """The Mie evaluator is built with multiply-add contraction, every other
+    kernel without; a library built with other flags has another name, so
+    it is never loaded in place of the right one."""
+    assert "--fmad=false" not in build.nvcc_flags("mie_cheb_eval")
+    for name in ("advect_scalar_5_3", "advect_tracers"):
+        assert "--fmad=false" in build.nvcc_flags(name)
+    paths = {name: build.lib_path(name) for name in build.SOURCES}
+    monkeypatch.setitem(build.DROPPED_FLAGS, "mie_cheb_eval", ())
+    assert "--fmad=false" in build.nvcc_flags("mie_cheb_eval")
+    assert build.lib_path("mie_cheb_eval") != paths["mie_cheb_eval"]
+    monkeypatch.setitem(build.DROPPED_FLAGS, "advect_scalar_5_3", ("--fmad=false",))
+    assert build.lib_path("advect_scalar_5_3") != paths["advect_scalar_5_3"]
+    assert build.lib_path("advect_tracers") == paths["advect_tracers"]

@@ -123,6 +123,26 @@ def test_mie_plain_matches_pallas_interpret():
         assert _abs(w, g) <= 3.2e-4, (name, _abs(w, g))
 
 
+def test_mie_packed_table_layout():
+    """The kernel's packed corner table: for floor cell (ja, jb) and row r,
+    entry [9 ja + jb, r] is G's four corner columns in the order of the
+    weights w00, w01, w10, w11, and each cell is padded with zeros to the
+    count of float4s asked for (the kernel library's, which
+    test_torch_emulated checks); fewer than G's 90 rows are refused."""
+    G = tmie.build_grid_matrix()
+    for stride in (90, 91, 95):
+        table = mie_kernel.packed_table(torch.device("cpu"), stride).numpy()
+        assert table.shape == (63, stride, 4) and table.dtype == np.float32
+        for ja in range(7):
+            for jb in range(9):
+                c = 10 * ja + jb
+                np.testing.assert_array_equal(table[9 * ja + jb, :90],
+                                              G[:, [c, c + 1, c + 10, c + 11]])
+        assert not table[:, 90:].any()
+    with pytest.raises(ValueError, match="cell_stride"):
+        mie_kernel.packed_table(torch.device("cpu"), 89)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "rank", "type"])
 def test_mie_wrapper_rejects_bad_inputs(bad):
     nr_n, u, t = (_t(a) for a in _mie_inputs(3, nband=3, n=8))
@@ -212,7 +232,7 @@ def test_chem_driver_config3():
 def test_mie_kernel_matches_plain_on_gpu():
     """The CUDA kernel against its plain version on the card, edges
     included; |d ln Q|, |d g| <= 3.2e-4 (the coefficient sums differ from
-    the plain matrix product in order only)."""
+    the plain matrix product in order, and the kernel fuses multiply-adds)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")

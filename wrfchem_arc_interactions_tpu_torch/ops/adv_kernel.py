@@ -7,7 +7,9 @@ advect_scalar_5_3``.  Both compute
 on a flat grid: the tendency -div F of one mass-point scalar, with 5th-order
 horizontal and 3rd-order vertical fluxes.  The kernel
 (``csrc/advect_scalar_5_3.cu``) is memory-bound (10.8 MB per call at
-100x100x50, 3.2 us at 3.35 TB/s); its header states the design.
+100x100x50, 3.2 us at 3.35 TB/s); each thread marches a few cells of one
+column up a chunk of levels in registers (`plan` gives the grid), and its
+header states the design.
 
 `advect_scalar_5_3` launches the kernel for CUDA tensors and runs
 `advect_scalar_5_3_reference` for CPU tensors; it never falls back from
@@ -28,6 +30,22 @@ from wrfchem_arc_interactions_tpu_torch.ops.stencil import PAD, win
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def plan(lib: ctypes.CDLL, nz: int, ny: int, nx: int, sms: int) -> dict:
+    """The grid the kernel library `lib` launches on `sms` SMs: rows of
+    cells a thread owns, warps and blocks of a plane, levels of a z chunk,
+    chunks, threads of a block, and blocks in all."""
+    fn = lib.advect_scalar_5_3_plan
+    fn.argtypes = _PLAN_ARGTYPES
+    fn.restype = None
+    out = (ctypes.c_int * 6)()
+    fn(nz, ny, nx, sms, out)
+    p = dict(zip(("rows_per_thread", "warps_per_plane", "blocks_per_plane", "kc", "chunks",
+                  "threads"), out))
+    p["blocks"] = p["blocks_per_plane"] * p["chunks"]
+    return p
 
 
 def advect_scalar_5_3_reference(q_pad, ru_pad, rv_pad, ww, rdnw, rdx: float,
@@ -71,8 +89,6 @@ def _check(q_pad, ru_pad, rv_pad, ww, rdnw):
         raise ValueError(f"ww must be {(nz + 1, ny, nx)}, got {tuple(ww.shape)}")
     if tuple(rdnw.shape) != (nz,):
         raise ValueError(f"rdnw must be ({nz},), got {tuple(rdnw.shape)}")
-    if nz > 65535:
-        raise ValueError("nz exceeds the kernel's grid z limit (65535)")
     return nz, ny, nx
 
 

@@ -13,7 +13,15 @@ text with `register_generated`: the source is written into ``build/`` too
 and is then built and loaded like a static one.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that the
-kernels round exactly where their plain PyTorch versions do.
+kernels round exactly where their plain PyTorch versions do.  A kernel may
+be built without some of them (`DROPPED_FLAGS`): the Mie evaluator drops
+``--fmad=false``.  It is held to its plain version within a tolerance, not
+bitwise (its coefficients are sums in another order than the plain
+version's matrix product anyway), and its time is set by instruction
+issue, so a fused multiply-add in place of a multiply and an add counts.
+Every other kernel keeps the flag and stays bitwise equal to its plain
+version.  A library's name hashes its source and its own flags, so a build
+with other flags is never loaded in its place.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ SOURCES = {"advect_scalar_5_3": "advect_scalar_5_3.cu",
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# kernel name -> flags of NVCC_FLAGS that its library is built without
+DROPPED_FLAGS: Dict[str, tuple] = {"mie_cheb_eval": ("--fmad=false",)}
 
 # kernel name -> path of a generated source under build/
 _GENERATED: Dict[str, str] = {}
@@ -79,9 +90,15 @@ def nvcc_path() -> str:
                        "with the CUDA toolkit")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags of kernel `name`'s library."""
+    dropped = DROPPED_FLAGS.get(name, ())
+    return tuple(f for f in NVCC_FLAGS if f not in dropped)
+
+
 def lib_path(name: str) -> str:
     with open(_source(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha1(f.read() + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:12]}.so")
 
 
@@ -106,7 +123,7 @@ def build_all(names: Optional[Iterable[str]] = None,
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+        cmd = [nvcc, *nvcc_flags(name), *(("-Xptxas", "-v") if verbose else ()),
                "-o", tmp, _source(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
