@@ -13,9 +13,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    at the shapes the main paths give it (the Mie evaluator on random and on
    warp-coherent inputs; the multi-tracer kernel at config 3's 47 and config
    4's 107 scalars, and at small shapes that stress its tile and its ring of
-   planes on all three boundary kinds; the ROS2 kernel against its plain
-   version at config 4's 500,000 cells and at 4,133 cells), timed with CUDA
-   events, beside its bound, with each library's build flags;
+   planes on all three boundary kinds, with rows of 1,000 cells in x tiles
+   held bitwise; the ROS2 kernel against its plain version at config 4's
+   500,000 cells and at 4,133 cells), timed with CUDA events, beside its
+   bound, with each library's build flags;
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -25,9 +26,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    finite fields, 0 < max w < 60 m/s, OLR in 100-400 W m-2, tau_aer_sw > 0
    where bins are seeded, ssa_aer_sw in (0, 1], and the exact kernel
    launch counts of the window; then the time of one rad call, one chem
-   call and one main step, each synchronised, the rad call's peak memory,
-   and the scalar advection kernel bitwise against its plain version on
-   the inputs of one main step (so too in phases 5 and 8);
+   call and one main step, each synchronised, the rad call's peak memory
+   (10,000 columns, one chunk) and the call in chunks of 4,096 columns held
+   bitwise to it, and the scalar advection kernel bitwise against its
+   plain version on the inputs of one main step (so too in phases 5, 8 and
+   10);
 5. slice 1's path (radiation and chemistry off): 10 steps, 9 launches of
    the fused advection kernel per step;
 6. a short profile of two config-3 steps and one chem call (device time by
@@ -47,7 +50,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    inputs (distinct floor cells per warp, device time per bin, within
    3.2e-4 of its plain version);
 9. config-4 cross-check: 3 steps of a small config 4 from noon UTC (both
-   alarms every step) on the card against the CPU.
+   alarms every step) on the card against the CPU;
+10. slice-6 phase, this slice's main path: bench.py's --config4-8bin
+   (config 4 with cbmz_mosaic_8bin) with emissions (seeded surface fluxes
+   and fire sources lifted by plume rise), the cloud-borne phase with
+   aqueous chemistry and wet scavenging: 219 advected scalars, 2 warm-up
+   steps, one 100-step window with exact launches (300 / 400 / 80 / 10),
+   finite fields and no negative chem field; on one chem call the emitted
+   burden against the fluxes, cw_exchange's conservation and cloud-borne
+   number in cloudy updrafts, and rain lowering the scavenged fields; the
+   synchronised phase times, profiles of a chem call and a main step, the
+   Mie kernel on the 8 bins' own inputs;
+11. slice-6 cross-check: 3 steps at 16x8x20 from noon on the card against
+   the CPU;
+12. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
+   of the multi-tracer kernel): that kernel timed at 47 scalars on the
+   grid, 3 steps with one rad and one chem call and exact launches, and
+   the rad call's peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with
@@ -156,6 +175,42 @@ def _seed4(state):
     for name, v in GAS_SEED:
         state[f"chem_{name}"] = torch.full_like(state["t"], v)
     return state
+
+
+def _cfg6(nx=100, ny=100, nz=50, chem_s=60.0, rad_s=600.0,
+          start_date="2000-06-20_00:00:00"):
+    """Slice 6's path: bench.py's --config4-8bin (`_cfg4` with
+    cbmz_mosaic_8bin) with emissions, the cloud-borne phase with aqueous
+    chemistry and wet scavenging on."""
+    import dataclasses
+    from wrfchem_arc_interactions_tpu_torch.config.namelist import ChemOpt
+    cfg = _cfg4(nx, ny, nz, chem_s, rad_s, start_date)
+    return cfg.replace(chem=dataclasses.replace(
+        cfg.chem, chem_opt=ChemOpt.CBMZ_MOSAIC_8BIN, emiss_opt=True, cldchem_onoff=True,
+        wetscav_onoff=True))
+
+
+# surface fluxes of a regional air-quality run: gases [ppmv/s * m], aerosol
+# [ug/m2/s] (oc and bc into bin 1)
+SURFACE_EMISSIONS = (("so2", 2e-4), ("no", 5e-4), ("co", 2e-3), ("nh3", 3e-4),
+                     ("oc_a01", 0.05), ("bc_a01", 0.02))
+
+
+def _emissions6(grid, seed=6):
+    """Constant emissions made from a seed, on the grid's device: the
+    surface fluxes of `SURFACE_EMISSIONS` x U(0.5, 1.5) per column, and
+    fire sources of so2 and no (5e-3, 2e-3) with a heat of 2,000 MW over
+    a patch of a sixteenth of the columns, which plume rise lifts aloft."""
+    ny, nx = grid.ny, grid.nx
+    rng = np.random.default_rng(seed)
+    out = {k: v * rng.uniform(0.5, 1.5, (ny, nx)) for k, v in SURFACE_EMISSIONS}
+    patch = np.zeros((ny, nx), bool)
+    patch[ny // 4: ny // 4 + max(1, ny // 4), nx // 4: nx // 4 + max(1, nx // 4)] = True
+    out["elev_so2"] = np.where(patch, 5e-3, 0.0)
+    out["elev_no"] = np.where(patch, 2e-3, 0.0)
+    out["heat_mw"] = np.where(patch, 2000.0, 0.0)
+    dev = grid.mub.device
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in out.items()}
 
 
 def _kernels():
@@ -387,36 +442,61 @@ def _mie_check(mie_kernel, label, nr_n, u, t):
     return errs
 
 
-def adv_on_path(step, label) -> int:
-    """The scalar advection kernel against its plain version, bitwise, on
-    the inputs of its calls in one main step of a path (`step` runs the
-    step): the number of calls compared."""
+# calls of each dycore kernel compared on each path's own inputs, by path
+ON_PATH = {"advect_scalar_5_3": {}, "advect_tracers": {}}
+
+
+def dycore_on_path(step, label):
+    """The scalar advection kernel and the multi-tracer kernel against their
+    plain versions, bitwise, on the inputs of their calls in one main step of
+    a path (`step` runs the step; the multi-tracer kernel's calls are those
+    of the path's stages, with and without the limiter, at its own scalar
+    count).  Records the number of calls compared in `ON_PATH`."""
     from wrfchem_arc_interactions_tpu_torch.dycore import solve
-    from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel
-    seen = []
-    inner = solve.advect_scalar_5_3
+    from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, tracers_kernel
+    kernels = {"advect_scalar_5_3": (adv_kernel.advect_scalar_5_3,
+                                     adv_kernel.advect_scalar_5_3_reference),
+               "advect_tracers": (tracers_kernel.advect_tracers,
+                                  tracers_kernel.advect_tracers_reference)}
+    seen = {name: [] for name in kernels}
+    inner = {name: getattr(solve, name) for name in kernels}
 
-    def recording(*args):
-        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
-        return inner(*args)
+    def recording(name):
+        def call(*args, **kw):
+            seen[name].append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                     for a in args),
+                               {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                for k, v in kw.items()}))
+            return inner[name](*args, **kw)
+        return call
 
-    solve.advect_scalar_5_3 = recording
+    for name in kernels:
+        setattr(solve, name, recording(name))
     try:
         step()
         torch.cuda.synchronize()
     finally:
-        solve.advect_scalar_5_3 = inner
-    if not seen:
+        for name in kernels:
+            setattr(solve, name, inner[name])
+    if not seen["advect_scalar_5_3"]:
         raise RuntimeError(f"advect_scalar_5_3: no call in one step of {label}")
-    for args in seen:
-        out = adv_kernel.advect_scalar_5_3(*args)
-        ref = adv_kernel.advect_scalar_5_3_reference(*args)
-        if not torch.equal(out, ref):
-            raise RuntimeError(f"advect_scalar_5_3 on {label}'s inputs: max|d| "
-                               f"{float((out - ref).abs().max())}, not bitwise equal")
-    print(f"advect_scalar_5_3 (kernel) vs plain on the card, {label}'s own inputs: "
-          f"{len(seen)} calls of one main step, max|d| = 0 (bitwise equal)")
-    return len(seen)
+    for name, (kernel, plain) in kernels.items():
+        shapes = set()
+        for args, kw in seen[name]:
+            out, ref = kernel(*args, **kw), plain(*args, **kw)
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"{name} on {label}'s inputs {tuple(args[0].shape)} "
+                                   f"{kw.get('pd', '')}: max|d| "
+                                   f"{float((out - ref).abs().max())}, not bitwise equal")
+            shapes.add((tuple(args[0].shape), kw.get("pd")))
+            del out, ref
+        ON_PATH[name][label] = len(seen[name])
+        if seen[name]:
+            print(f"{name} (kernel) vs plain on the card, {label}'s own inputs: "
+                  f"{len(seen[name])} calls of one main step (inputs, limiter: "
+                  f"{sorted(shapes, key=str)}), max|d| = 0 (bitwise equal)")
+    del seen
+    torch.cuda.empty_cache()
 
 
 def kernel_mie(dev, nz, ny, nx, nband=30):
@@ -463,51 +543,67 @@ def _cpw(nr_n, u) -> str:
             f"{100.0 * float((c == 1).float().mean()):.1f}% of warps in one cell")
 
 
+class _Recorded:
+    """Record the calls of functions of a module while a block runs: the
+    list of (args, kwargs, result) per name; the originals come back after."""
+
+    def __init__(self, module, *names):
+        self.module, self.names = module, names
+        self.calls = {n: [] for n in names}
+        self.inner = {n: getattr(module, n) for n in names}
+
+    def __enter__(self):
+        for n in self.names:
+            def recording(*args, _n=n, **kw):
+                out = self.inner[_n](*args, **kw)
+                # the caller may go on to assign into a dict it got or gave
+                self.calls[_n].append((tuple(dict(a) if isinstance(a, dict) else a
+                                             for a in args), kw,
+                                       dict(out) if isinstance(out, dict) else out))
+                return out
+            setattr(self.module, n, recording)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            setattr(self.module, n, self.inner[n])
+        return False
+
+
 def capture_mie_inputs(fn):
     """Run `fn` (a chem call) with the Mie kernel's inputs recorded: the
     list of (nr_n, u, t) of its calls, one per bin."""
     from wrfchem_arc_interactions_tpu_torch.chem import optics
-    seen = []
-    inner = optics.cheb_eval
-
-    def recording(nr_n, u, t):
-        seen.append((nr_n.clone(), u.clone(), t.clone()))
-        return inner(nr_n, u, t)
-
-    optics.cheb_eval = recording
-    try:
+    with _Recorded(optics, "cheb_eval") as calls:
         fn()
-    finally:
-        optics.cheb_eval = inner
-    return seen
+    return [tuple(a.clone() for a in args) for args, _, _ in calls["cheb_eval"]]
 
 
-def mie_on_path(chem_call, card):
-    """The Mie kernel on config 4's own inputs: the distinct floor cells per
-    warp of each bin's call (what decides whether the table loads are
-    broadcasts) and the kernel's device time per call on each bin's
+def mie_on_path(chem_call, card, label="config 4"):
+    """The Mie kernel on a path's own inputs (`label`): the distinct floor
+    cells per warp of each bin's call (what decides whether the table loads
+    are broadcasts) and the kernel's device time per call on each bin's
     inputs.  Returns {bin: numbers}."""
     from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel
     per_bin = {}
     for b, (nr_n, u, t) in enumerate(capture_mie_inputs(chem_call), start=1):
         c = cells_per_warp(nr_n, u).float()
-        errs = _mie_check(mie_kernel, f"config 4 bin {b}", nr_n, u, t)
+        errs = _mie_check(mie_kernel, f"{label} bin {b}", nr_n, u, t)
         ms = _device_ms(lambda: mie_kernel.cheb_eval(nr_n, u, t), calls=5, trials=20)
         per_bin[b] = {"ms": ms, "elements": t.numel(), "max_abs_err": max(errs),
                       "cells_per_warp_mean": float(c.mean()),
                       "cells_per_warp_max": int(c.max()),
                       "warps_in_one_cell": float((c == 1).float().mean())}
-        print(f"mie_cheb_eval on config 4's own inputs, bin {b} ({t.numel()} elements): "
+        print(f"mie_cheb_eval on {label}'s own inputs, bin {b} ({t.numel()} elements): "
               f"{_cpw(nr_n, u)}, at most {int(c.max())}; kernel {ms:.4f} ms per call "
               f"[{card}]")
     return per_bin
 
 
-def kernel_tracers(dev, grid, nt):
-    """One stage update of `nt` scalars at full width (config 3 advects 47,
-    config 4 107), without the limiter (stages 0-1) and with PD limiter and
-    clip (stage 2): {mode: numbers}."""
-    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
+def tracer_inputs(dev, grid, nt):
+    """Seeded inputs of one stage update of `nt` scalars on `grid`: (the
+    positional arguments of `advect_tracers`, the tendency stack pt,
+    max|q|)."""
     from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
     nz, ny, nx = grid.nz, grid.ny, grid.nx
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -530,7 +626,16 @@ def kernel_tracers(dev, grid, nt):
         a.to(dev) for a in (q, mu0, mu_full, mu_new, ru, rv, ww, pt))
     args = (hx.pad(q, 3), mu0 * q, hx.pad(ru, 3), hx.pad(rv, 3), ww, mu_full, mu_new,
             grid, hx, 6.0)
-    qmax = float(q.abs().max())
+    return args, pt, float(q.abs().max())
+
+
+def kernel_tracers(dev, grid, nt):
+    """One stage update of `nt` scalars at full width (config 3 advects 47,
+    config 4 107, slice 6 219), without the limiter (stages 0-1) and with PD
+    limiter and clip (stage 2): {mode: numbers}."""
+    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    args, pt, qmax = tracer_inputs(dev, grid, nt)
     modes = {}
     for pd in (False, True):
         kw = dict(pt=pt, pd=pd, clip=pd)
@@ -562,20 +667,23 @@ def kernel_tracers(dev, grid, nt):
     return modes
 
 
-def tracers_entry(modes, modes_nt47):
+def tracers_entry(modes, others):
     """The multi-tracer kernel's entry.  A main path calls it twice without
     the limiter and once with it per step: the entry carries the mean per
-    call over that mix at config 4's 107 scalars (its "launches" count
-    grids: one per call without the limiter, two with it); `modes` holds
-    both settings at nt = 107 and `modes_nt47` at config 3's 47."""
+    call over that mix at the main path's (slice 6's) 219 scalars (its
+    "launches" count grids: one per call without the limiter, two with it);
+    `modes` holds both settings at nt = 219, and `others` ({key: modes})
+    those of the other paths' shapes."""
     a, b = modes["no_limiter"], modes["pd_clip"]
     mean = {k: (2.0 * a[k] + b[k]) / 3.0 for k in ("ms", "plain_ms", "bound_ms")}
-    entry = _entry("advect_tracers", None, max(a["max_abs_err"], b["max_abs_err"]),
+    entry = _entry("advect_tracers", None,
+                   max(m["max_abs_err"] for ms in (modes, *others.values())
+                       for m in ms.values()),
                    mean["ms"], mean["plain_ms"],
                    (mean["bound_ms"], a["bound_by"] if a["bound_by"] == b["bound_by"]
                     else "bytes and operations"))
     entry["modes"] = modes
-    entry["modes_nt47"] = modes_nt47
+    entry.update(others)
     return entry
 
 
@@ -668,8 +776,11 @@ def kernel_ros2(dev, ncell, n_sub=2, dt_total=60.0):
 # (nz, ny, nx) that stress the multi-tracer kernel's ring of planes (fewer
 # levels than the ring holds), its tile (one row; rows that do not fill the
 # last tile) and its slots (rows narrower and wider than a warp; a row so
-# wide that a thread owns eight slots, not four)
-TRACER_SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (50, 9, 13), (2, 4, 300))
+# wide that a thread owns eight slots, not four); and rows wider than one
+# tile holds, which it splits into x tiles (held bitwise)
+TRACER_SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (50, 9, 13), (2, 4, 300),
+                 (2, 4, 1000), (5, 17, 1000))
+WIDE_ROW = 1000
 
 
 def tracer_boundary_cases():
@@ -693,7 +804,7 @@ def _tracers_boundaries(dev, grid, nt=3):
     from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
     from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
     gen = torch.Generator(device="cpu").manual_seed(3)
-    worst = 0.0
+    worst, bitwise = 0.0, 0
     cases = tracer_boundary_cases()
     for nz, ny, nx, bc_x, bc_y in cases:
         g = dataclasses.replace(grid, rdnw=grid.rdnw[:nz].contiguous())
@@ -716,13 +827,17 @@ def _tracers_boundaries(dev, grid, nt=3):
             torch.cuda.synchronize()
             err = float((out - ref).abs().max() / q.abs().max())
             worst = max(worst, err)
-            if not err <= 1e-5:
+            if not err <= 1e-5 or (nx >= WIDE_ROW and not torch.equal(out, ref)):
                 raise RuntimeError(f"advect_tracers at (nt, nz, ny, nx) = {(nt, nz, ny, nx)}, "
                                    f"x {bc_x}, y {bc_y}, limiter {pd} disagrees with its "
                                    f"plain version: {err}")
+            bitwise += int(torch.equal(out, ref))
     print(f"advect_tracers (kernel) vs plain with and without the limiter at {len(cases)} "
-          f"small shapes and boundary kinds (nz 1-50, ny 1-17, nx 13, 33 and 300; open, symmetric, "
-          f"periodic): max|d|/max|q| = {worst:.3g} (limit 1e-5)")
+          f"shapes and boundary kinds (nz 1-50, ny 1-17, nx 13, 33, 300 and {WIDE_ROW}, the "
+          f"last in x tiles; open, symmetric, periodic): max|d|/max|q| = {worst:.3g} (limit "
+          f"1e-5; rows of {WIDE_ROW} bitwise), {bitwise} of {2 * len(cases)} calls bitwise "
+          f"equal; one tile spans {tracers_kernel.widest_row(False)} cells without the "
+          f"limiter, {tracers_kernel.widest_row(True)} with it")
 
 
 def _tracer_grids_per_step() -> int:
@@ -799,14 +914,46 @@ def slice_phase(cfg, grid, state, dev, steps, card):
     out = rad(sim.state, sim.grid, t_now)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
+    chunked = _rad_in_chunks(rad, sim, t_now, out, 4096)
     del out
     print(f"phases, synchronised: main step {main_ms:.3f} ms, rad call {rad_ms:.3f} ms, "
           f"chem call {chem_ms:.3f} ms; per step of the window: main + (rad + chem)/"
           f"{steps} = {main_ms + (rad_ms + chem_ms) / steps:.3f} ms; rad call peak "
           f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
-          f"{base / 2**30:.3f} GiB held before it; columns are not chunked)")
-    adv_on_path(lambda: main(sim.state, sim.grid, t_now), "config 3")
+          f"{base / 2**30:.3f} GiB held before it; {sim.grid.ny * sim.grid.nx} columns in "
+          f"chunks of at most {_col_chunk()}); {chunked}")
+    dycore_on_path(lambda: main(sim.state, sim.grid, t_now), "config 3")
     return sim, launches, ms_step
+
+
+def _col_chunk() -> int:
+    from wrfchem_arc_interactions_tpu_torch.physics.radiation import driver
+    return driver.COL_CHUNK
+
+
+RAD_FIELDS = ("rthraten_sw", "rthraten_lw", "swdown", "swupt", "olr", "glw", "cldfra")
+
+
+def _rad_in_chunks(rad, sim, t_now, whole, chunk):
+    """The rad call again with the column chunk set to `chunk`: every field
+    must equal `whole` (the call at the driver's chunk) bit for bit.
+    Returns the line to print."""
+    from wrfchem_arc_interactions_tpu_torch.physics.radiation import driver
+    keep = driver.COL_CHUNK
+    driver.COL_CHUNK = chunk
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = rad(sim.state, sim.grid, t_now)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        driver.COL_CHUNK = keep
+    differ = [k for k in RAD_FIELDS if k in whole and not torch.equal(out[k], whole[k])]
+    if differ:
+        raise RuntimeError(f"rad call in chunks of {chunk} columns differs from one chunk "
+                           f"in {differ}")
+    return (f"in chunks of {chunk} columns the rad call equals it bit for bit, peak "
+            f"{peak / 2**30:.3f} GiB")
 
 
 def slice1_phase(dev, card, steps=10):
@@ -832,7 +979,7 @@ def slice1_phase(dev, card, steps=10):
         raise RuntimeError("slice 1's path: non-finite fields")
     print(f"slice 1's path (radiation and chemistry off): {steps} steps, "
           f"{wall / steps * 1e3:.3f} ms/step [{card}]; kernel launches {launches}")
-    adv_on_path(lambda: sim.advance(1), "slice 1's path")
+    dycore_on_path(lambda: sim.advance(1), "slice 1's path")
     return launches
 
 
@@ -937,8 +1084,281 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
           f"tenth of a chem call); advect_tracers grids: {_tracer_grids_us(rows2)}")
     for t_us, count, key in rows2[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
-    adv_on_path(lambda: sim.advance(1), "config 4")
+    dycore_on_path(lambda: sim.advance(1), "config 4")
     return launches, mie_path
+
+
+def _check_emissions(call, dt):
+    """The column burden of the emitted species rises as the fluxes say:
+    per column and level, the mass added (q change x rho dz) is the surface
+    flux x dt in the lowest layer plus the elevated flux x dt x the plume
+    weight.  Returns (worst relative error, fraction of the elevated mass
+    injected above the lowest layer)."""
+    (chem, emis, rho0, dz0, _), kw, out = call
+    rho, dz, plume_w = kw["rho"], kw["dz"], kw["plume_w"]
+    worst = 0.0
+    for sp in ("so2", "no", "co", "nh3"):
+        key = f"chem_{sp}"
+        added = (out[key].double() - chem[key].double()) * (rho * dz).double()
+        want = torch.zeros_like(added)
+        want[0] = emis[sp].double() * dt
+        if f"elev_{sp}" in emis:
+            want = want + plume_w.double() * emis[f"elev_{sp}"].double()[None] * dt
+        col = want.sum(dim=0)
+        err = float((added - want).abs().max() / col.abs().max())
+        err_col = float((added.sum(dim=0) - col).abs().max() / col.abs().max())
+        worst = max(worst, err, err_col)
+    elev = emis["elev_so2"].double()[None] * plume_w.double()
+    aloft = float(elev[1:].sum() / elev.sum())
+    if not worst <= 1e-3:
+        raise RuntimeError(f"slice 6: emitted burden off the fluxes by {worst:.3g} of the "
+                           "column's rise")
+    if not aloft > 0.0:
+        raise RuntimeError("slice 6: plume rise put no elevated mass above the lowest layer")
+    return worst, aloft
+
+
+def _check_cw_exchange(call, nbin):
+    """One cw_exchange call on the card conserves each (bin, species)
+    interstitial + cloud-borne total to float32 rounding (2^-22 of the
+    total), and leaves cloud-borne number in every cell with cloud water
+    (qc > QC_CLOUD).  Returns (worst relative change, cloudy cells, those
+    with an updraft of 1 m/s or more)."""
+    from wrfchem_arc_interactions_tpu_torch.chem import aux
+    from wrfchem_arc_interactions_tpu_torch.chem.mosaic.bins import AER_SPECIES
+    (chem, qc, _, _, _, w_up, _), _, out = call
+    worst = 0.0
+    for b in range(1, nbin + 1):
+        for sp in tuple(AER_SPECIES) + ("num",):
+            ki, kc = f"chem_{sp}_a{b:02d}", f"chem_{sp}_cw{b:02d}"
+            tot0 = chem[ki].double() + chem[kc].double()
+            tot1 = out[ki].double() + out[kc].double()
+            d = (tot1 - tot0).abs()
+            if not bool((d <= 2.0 ** -22 * tot0.abs()).all()):
+                raise RuntimeError(f"slice 6: cw_exchange changed the {sp} total of bin {b} "
+                                   f"by {float(d.max()):.3g}")
+            worst = max(worst, float((d / tot0.abs().clamp(min=1e-30)).max()))
+    cloudy = qc > aux.QC_CLOUD
+    num_cw = sum(out[f"chem_num_cw{b:02d}"] for b in range(1, nbin + 1))
+    n_cloudy, with_cw = int(cloudy.sum()), int((num_cw[cloudy] > 0.0).sum())
+    if n_cloudy == 0 or with_cw != n_cloudy:
+        raise RuntimeError(f"slice 6: cloud-borne number in {with_cw} of {n_cloudy} cells "
+                           "with qc > QC_CLOUD")
+    return worst, n_cloudy, int((cloudy & (w_up >= 1.0)).sum())
+
+
+def _check_wet_scavenging(call, dev, nbin):
+    """Rain lowers the scavenged fields: where rain water exceeds 1e-5 kg/kg
+    every populated cloud-borne, interstitial and soluble-gas field falls,
+    and where there is none nothing moves.  On the path's own rain when the
+    window has rain, else on a seeded rain field over the same chem
+    fields.  Returns (source of the rain, raining cells)."""
+    from wrfchem_arc_interactions_tpu_torch.chem import aux
+    (chem, qr, dt, gas_names), kw, out = call
+    source = "the path's"
+    if not float(qr.max()) > 1e-5:
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        qr = (2e-3 * torch.rand(qr.shape, generator=gen)
+              * (torch.rand(qr.shape, generator=gen) > 0.5)).to(dev)
+        out = aux.wet_scavenging(chem, qr, dt, gas_names, **kw)
+        source = "a seeded"
+    raining, dry = qr > 1e-5, qr == 0.0
+    for key in ("chem_num_cw01", "chem_so4_cw01", "chem_num_a01", "chem_so4_a02",
+                f"chem_num_a{nbin:02d}", "chem_hno3", "chem_so2", "chem_h2o2"):
+        fell = out[key] < chem[key]
+        held = chem[key] > 1e-30
+        if not bool(fell[raining & held].all()):
+            raise RuntimeError(f"slice 6: rain did not lower {key} everywhere it rains")
+        if not torch.equal(out[key][dry], chem[key][dry]):
+            raise RuntimeError(f"slice 6: wet scavenging moved {key} where it does not rain")
+    return source, int(raining.sum())
+
+
+def slice6_phase(dev, card, steps=RAD_CHEM_EVERY):
+    """Slice 6's path through `Simulation`: bench.py's --config4-8bin with
+    emissions (plume rise), the cloud-borne phase with aqueous chemistry and
+    wet scavenging, 219 advected scalars; one 100-step window with 10 chem
+    and 1 rad call, the exact launches of all four kernels, the physical
+    checks, the synchronised phase times, a profile of one chem call, the
+    Mie kernel on the 8 bins' own inputs, the scalar advection and the
+    multi-tracer kernel bitwise on the path's own inputs, and the
+    multi-tracer kernel at 219 scalars on this grid, timed beside its
+    bound.  Returns (launches, numbers)."""
+    from wrfchem_arc_interactions_tpu_torch.chem import aux
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
+    cfg = _cfg6()
+    nbin = 8
+    t0 = time.perf_counter()
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    state = _seed4(state)
+    emissions = _emissions6(grid)
+    sim = Simulation(cfg, grid, state, device=dev, emissions=emissions)
+    nt = len(advected_names(cfg))
+    n_cw = len([k for k in advected_names(cfg) if "_cw" in k])
+    print(f"case squall2d_x 100x100x50 (slice 6: cbmz_mosaic_8bin with emissions, the "
+          f"cloud-borne phase and wet scavenging; {len(state)} fields, {nt} advected scalars, "
+          f"{n_cw} of them cloud-borne; emissions {sorted(emissions)}) built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (nt == 219 and n_cw == 72 and sim.rad_every == steps and sim.chem_every == 10):
+        raise RuntimeError(f"slice 6: {nt} scalars ({n_cw} cloud-borne), rad every "
+                           f"{sim.rad_every}, chem every {sim.chem_every}; expected 219 (72), "
+                           f"{steps}, 10")
+    sim.advance(2)                  # warm-up: both alarms ring at step 0
+    sim.sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.advance(steps)              # steps 2..101: chem at 10, 20, .., 100; rad at 100
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    s = sim.state
+    for k, v in s.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"slice 6: non-finite {k} after {steps + 2} steps")
+    neg = [k for k, v in s.items() if k.startswith("chem_") and float(v.min()) < 0.0]
+    if neg:
+        raise RuntimeError(f"slice 6: negative chem fields {neg}")
+    n_chem = steps // sim.chem_every
+    # theta: the single-scalar kernel on 3 stages; the 219 scalars: the
+    # multi-tracer kernel's 4 grids a step; each chem call launches the Mie
+    # kernel once per bin (8) and the ROS2 kernel once
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
+            "mie_cheb_eval": nbin * n_chem, "ros2_integrate": n_chem}
+    if launches != want:
+        raise RuntimeError(f"slice 6: kernel launches in the {steps}-step window "
+                           f"{launches}, expected {want}")
+    w_max = float(s["w"].max())
+    cw_max = float(sum(s[f"chem_num_cw{b:02d}"] for b in range(1, nbin + 1)).max())
+    d = cfg.domain
+    ms_step = wall / steps * 1e3
+    print(f"slice 6: {steps} steps of {d.nx}x{d.ny}x{d.nz} after 2 warm-up steps, {n_chem} "
+          f"chem calls and one rad call in the window: {ms_step:.3f} ms/step, "
+          f"{d.nx * d.ny * d.nz / (wall / steps) / 1e6:.4f} M gridpoints/s [{card}]; max w "
+          f"{w_max:.3f} m/s, max qc {float(s['qc'].max()):.3e}, max qr "
+          f"{float(s['qr'].max()):.3e}, max cloud-borne number {cw_max:.3e} /kg, so2 "
+          f"{float(s['chem_so2'].min()):.4g}-{float(s['chem_so2'].max()):.4g} ppmv, nh3 "
+          f"max {float(s['chem_nh3'].max()):.4g} ppmv, tau_aer_sw "
+          f"{float(s['tau_aer_sw'].min()):.4g}-{float(s['tau_aer_sw'].max()):.4g}; kernel "
+          f"launches {launches}")
+
+    t_now = np.float32(sim.time_s)
+    main, rad, chem = (sim._stepper(k) for k in ("main", "rad", "chem"))
+    with _Recorded(aux, "apply_emissions", "cw_exchange", "wet_scavenging") as calls:
+        chem(sim.state, sim.grid, t_now)
+        torch.cuda.synchronize()
+    if any(len(v) != 1 for v in calls.values()):
+        raise RuntimeError(f"slice 6: stage calls in one chem call "
+                           f"{ {k: len(v) for k, v in calls.items()} }, expected one each")
+    dt = cfg.chem.chemdt_s
+    em_err, aloft = _check_emissions(calls["apply_emissions"][0], dt)
+    cw_err, n_cloudy, n_rising = _check_cw_exchange(calls["cw_exchange"][0], nbin)
+    rain_src, n_rain = _check_wet_scavenging(calls["wet_scavenging"][0], dev, nbin)
+    print(f"slice 6, one chem call on the card: emitted burden as the fluxes say within "
+          f"{em_err:.3g} of each column's rise, {100.0 * aloft:.1f}% of the elevated so2 "
+          f"above the lowest layer; cw_exchange conserves each (bin, species) total within "
+          f"{cw_err:.3g} (limit 2^-22), cloud-borne number in every one of the {n_cloudy} "
+          f"cells with qc > {aux.QC_CLOUD} ({n_rising} of them in updrafts of 1 m/s or "
+          f"more); rain lowered the scavenged fields in {n_rain} raining "
+          f"cells ({rain_src} rain) and moved nothing where it does not rain")
+    del calls
+    main_ms = _timed_ms(lambda: main(sim.state, sim.grid, t_now), 5)
+    rad_ms = _timed_ms(lambda: rad(sim.state, sim.grid, t_now), 2)
+    chem_ms = _timed_ms(lambda: chem(sim.state, sim.grid, t_now), 3)
+    print(f"phases (slice 6), synchronised: main step {main_ms:.3f} ms, rad call "
+          f"{rad_ms:.3f} ms, chem call {chem_ms:.3f} ms; per step of the window: main + "
+          f"chem/{sim.chem_every} + rad/{steps} = "
+          f"{main_ms + chem_ms / sim.chem_every + rad_ms / steps:.3f} ms")
+    dev_ms, n_kernels, rows = _profile(lambda: chem(sim.state, sim.grid, t_now))
+    print(f"profile of one slice-6 chem call: device busy {dev_ms:.3f} ms in {n_kernels} "
+          f"launches; ros2_kernel {_per_call_us(rows, 'ros2_kernel') / 1e3:.4f} ms, "
+          f"mie_cheb_eval {_per_call_us(rows, 'mie_cheb_eval') / 1e3:.4f} ms per launch")
+    for t_us, count, key in rows[:6]:
+        print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    mie_path = mie_on_path(lambda: chem(sim.state, sim.grid, t_now), card, "slice 6")
+    if len(mie_path) != nbin:
+        raise RuntimeError(f"slice 6: {len(mie_path)} Mie calls in one chem call, expected "
+                           f"{nbin}")
+    sim.sync()
+    dev2_ms, n2, rows2 = _profile(lambda: sim.advance(1))     # step 107: main only
+    print(f"profile of one slice-6 main step: device busy {dev2_ms:.3f} ms in {n2} "
+          f"launches; against the unprofiled {ms_step:.3f} ms/step the device is busy "
+          f"{100.0 * (dev2_ms + dev_ms / sim.chem_every) / ms_step:.1f}% (main step + a "
+          f"tenth of a chem call); advect_tracers grids: {_tracer_grids_us(rows2)}")
+    dycore_on_path(lambda: sim.advance(1), "slice 6")
+    modes = kernel_tracers(dev, sim.grid, nt)
+    numbers = {"ms_step": ms_step, "main_ms": main_ms, "chem_ms": chem_ms, "rad_ms": rad_ms,
+               "chem_device_ms": dev_ms, "chem_launches": n_kernels,
+               "main_device_ms": dev2_ms, "main_launches": n2, "mie_by_bin": mie_path,
+               "tracers_modes": modes}
+    return launches, numbers
+
+
+def wide_phase(dev, card, steps=3):
+    """Config 3 at 1000x100x50 (100,000 columns; x rows wider than one tile
+    of the multi-tracer kernel): that kernel at config 3's 47 scalars on
+    this grid, timed beside its bound; then `steps` steps through
+    `Simulation` (both alarms ring at step 0: one rad and one chem call),
+    the exact launches, finite fields, the rad call's peak memory, the Mie
+    kernel on one chem call's own inputs and the scalar advection and the
+    multi-tracer kernel bitwise on one main step's.  Returns (modes,
+    launches, Mie numbers by bin)."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    cfg = _cfg3(nx=1000)
+    t0 = time.perf_counter()
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    state = _seed(state)
+    print(f"case squall2d_x 1000x100x50 (config 3, {grid.ny * grid.nx} columns) built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    modes = kernel_tracers(dev, grid, nt=47)
+    torch.cuda.empty_cache()
+    sim = Simulation(cfg, grid, state, device=dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.advance(steps)
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = {"advect_scalar_5_3": 3 * steps,
+            "advect_tracers": _tracer_grids_per_step() * steps,
+            "mie_cheb_eval": 4, "ros2_integrate": 0}
+    if launches != want:
+        raise RuntimeError(f"config 3 at 1000x100x50: launches {launches}, expected {want}")
+    s = sim.state
+    for k, v in s.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"config 3 at 1000x100x50: non-finite {k}")
+    olr = (float(s["olr"].min()), float(s["olr"].max()))
+    if not (100.0 <= olr[0] and olr[1] <= 400.0):
+        raise RuntimeError(f"config 3 at 1000x100x50: OLR {olr} outside 100-400 W m-2")
+    if not float(s["tau_aer_sw"].min()) > 0.0:
+        raise RuntimeError("config 3 at 1000x100x50: tau_aer_sw is not positive")
+    rad = sim._stepper("rad")
+    t_now = np.float32(sim.time_s)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = rad(sim.state, sim.grid, t_now)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del out
+    rad_ms = _timed_ms(lambda: rad(sim.state, sim.grid, t_now), 1)
+    print(f"config 3 at 1000x100x50: {steps} steps (one rad and one chem call at step 0) in "
+          f"{wall:.2f} s [{card}], OLR {olr[0]:.1f}-{olr[1]:.1f} W m-2, launches {launches}; "
+          f"rad call {rad_ms:.3f} ms synchronised, peak memory {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it; "
+          f"{grid.ny * grid.nx} columns in chunks of at most {_col_chunk()})")
+    torch.cuda.empty_cache()
+    chem = sim._stepper("chem")
+    label = "config 3 at 1000x100x50"
+    mie_path = mie_on_path(lambda: chem(sim.state, sim.grid, t_now), card, label)
+    if len(mie_path) != 4:
+        raise RuntimeError(f"{label}: {len(mie_path)} Mie calls in one chem call, expected 4")
+    torch.cuda.empty_cache()
+    dycore_on_path(lambda: sim.advance(1), label)
+    return modes, launches, mie_path
 
 
 def _profile(fn):
@@ -1021,7 +1441,7 @@ def profile_phase(sim, dev, ms_step):
           f"of the step's wall time")
 
 
-def cross_check(dev, cfg, seed, label):
+def cross_check(dev, cfg, seed, label, emissions=None):
     """3 steps of a small configuration starting at noon UTC, radiation and
     chem every step, on the card against the CPU.  The limit per field is
     1e-4 of its magnitude, or three times the CPU run's own float32 noise
@@ -1034,7 +1454,8 @@ def cross_check(dev, cfg, seed, label):
     ulp = dict(state, t=state["t"] * (1.0 + 2.0 ** -23))
     runs = {}
     for key, s0, where in (("gpu", state, dev), ("cpu", state, "cpu"), ("ulp", ulp, "cpu")):
-        sim = Simulation(cfg, grid, s0, device=where)
+        sim = Simulation(cfg, grid, s0, device=where,
+                         emissions=None if emissions is None else emissions(grid))
         sim.advance(3)
         runs[key] = {k: v.double().cpu() for k, v in sim.state.items()}
     if not float(runs["gpu"]["swdown"].max()) > 100.0:
@@ -1050,7 +1471,8 @@ def cross_check(dev, cfg, seed, label):
             raise RuntimeError(f"card vs CPU ({label}): {k} differs by {err:.3g} of "
                                f"its magnitude (CPU noise {noise:.3g})")
     worst.sort(reverse=True)
-    print(f"cross-check 3 steps of {label} at 32x8x20 from noon, card vs CPU, worst "
+    d = cfg.domain
+    print(f"cross-check 3 steps of {label} at {d.nx}x{d.ny}x{d.nz} from noon, card vs CPU, worst "
           "fields: " + ", ".join(f"{k} {e:.3g} (CPU one-ulp noise {n:.3g})"
                                   for e, k, n in worst[:4]))
 
@@ -1099,7 +1521,7 @@ def main(argv=None) -> int:
     }
     modes_nt47 = kernel_tracers(dev, grid, nt=47)
     torch.cuda.empty_cache()
-    entries["advect_tracers"] = tracers_entry(kernel_tracers(dev, grid, nt=107), modes_nt47)
+    modes_nt107 = kernel_tracers(dev, grid, nt=107)
     _tracers_boundaries(dev, grid)
     torch.cuda.empty_cache()
     entries["ros2_integrate"] = kernel_ros2(dev, d.nx * d.ny * d.nz)
@@ -1117,15 +1539,40 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cross_check(dev, _cfg4(nx=32, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
                            start_date="2000-06-20_12:00:00"), _seed4, "config 4")
-    # "launches" is the count of this slice's main path, config 4's window,
+    torch.cuda.empty_cache()
+    launches6, numbers6 = slice6_phase(dev, card, args.steps)
+    entries["mie_cheb_eval"]["slice6_inputs"] = numbers6.pop("mie_by_bin")
+    entries["advect_tracers"] = tracers_entry(numbers6.pop("tracers_modes"),
+                                              {"modes_nt107": modes_nt107,
+                                               "modes_nt47": modes_nt47})
+    torch.cuda.empty_cache()
+    cross_check(dev, _cfg6(nx=16, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
+                           start_date="2000-06-20_12:00:00"), _seed4, "slice 6", _emissions6)
+    torch.cuda.empty_cache()
+    modes_wide, launches_wide, mie_wide = wide_phase(dev, card)
+    entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
+    entries["advect_tracers"]["max_abs_err"] = max(
+        entries["advect_tracers"]["max_abs_err"], *(m["max_abs_err"] for m in modes_wide.values()))
+    entries["mie_cheb_eval"]["config3_1000x100_inputs"] = mie_wide
+    entries["mie_cheb_eval"]["max_abs_err"] = max(
+        entries["mie_cheb_eval"]["max_abs_err"],
+        *(b["max_abs_err"] for path in ("config4_inputs", "slice6_inputs",
+                                        "config3_1000x100_inputs")
+          for b in entries["mie_cheb_eval"][path].values()))
+    for name, by_path in ON_PATH.items():
+        entries[name]["bitwise_on_path_calls"] = by_path
+    # "launches" is the count of this slice's main path, the slice-6 window,
     # which runs all four kernels; the earlier paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches4[name]
-        entry["launches_by_path"] = {"config4_window": launches4[name],
+        entry["launches"] = launches6[name]
+        entry["launches_by_path"] = {"slice6_window": launches6[name],
+                                     "config4_window": launches4[name],
                                      "config3_window": launches3[name],
-                                     "slice1_10_steps": launches1[name]}
-        if launches4[name] < 1:
-            raise RuntimeError(f"{name} was not launched on config 4's path")
+                                     "slice1_10_steps": launches1[name],
+                                     "config3_1000x100_3_steps": launches_wide[name]}
+        if launches6[name] < 1:
+            raise RuntimeError(f"{name} was not launched on slice 6's path")
+    print(json.dumps({"slice6": numbers6}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

@@ -1,17 +1,21 @@
-"""Time the scalar advection kernel and the Mie evaluator on one NVIDIA GPU:
-this tree's sources and (with --parent) the same two sources of another
-checkout, in turns on the same inputs, beside the scalar kernel's floors.
+"""Time the scalar advection kernel, the Mie evaluator and the multi-tracer
+stage-update kernel on one NVIDIA GPU: this tree's sources and (with
+--parent) the same three sources of another checkout, in turns on the same
+inputs, beside the scalar kernel's floors.
 
     python3 scripts/kernel_ab_gpu.py [--parent DIR] [--out FILE]
 
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked into a directory that .gitignore lists): its
-``csrc/advect_scalar_5_3.cu`` and ``csrc/mie_cheb_eval.cu`` are built with
-the flags of that time (``--fmad=false``) and called through their C entry
-points, which take the same arguments as this tree's (its Mie kernel reads
-the (90, 80) grid matrix where this tree's reads the packed corner table).
-Every kernel is first checked against its plain version on the same
-inputs (the scalar kernels bitwise, the Mie kernels to 3.2e-4).
+``csrc/advect_scalar_5_3.cu``, ``csrc/mie_cheb_eval.cu`` and
+``csrc/advect_tracers.cu`` are built with the flags of their design and
+called through their C entry points, which take the same arguments as this
+tree's.  A Mie kernel that exports ``mie_cheb_eval_shape`` reads the packed
+corner table and is built as this tree's (multiply-adds contracted); an
+older one reads the (90, 80) grid matrix and was built with
+``--fmad=false``, as every other kernel is.  Every kernel is
+first checked against its plain version on the same inputs (the scalar and
+multi-tracer kernels bitwise, the Mie kernels to 3.2e-4).
 
 It prints, and writes as JSON to FILE (default ``kernel_ab.json`` in the
 package's ``build/`` directory):
@@ -27,7 +31,15 @@ package's ``build/`` directory):
   warp-coherent ones, on runs of 8 elements in one cell (a quarter-warp's),
   and on config 4's own (each bin's call of one chem call of
   chip_smoke.py's config 4 after two steps): the parent's kernel and this
-  tree's in turns.
+  tree's in turns;
+- the multi-tracer kernel on chip_smoke.py's stage inputs
+  (`tracer_inputs`) at slice 6's 219 scalars, config 4's 107 and config
+  3's 47 on the 100x100x50 squall grid, and at 47 on a 1000x100x50 one,
+  each without the limiter and with PD limiter and clip: the parent's
+  kernel and this tree's in turns where the parent's one-tile grid spans
+  the row (``tracers_kernel.widest_row``: a kernel that has no x tiles
+  refuses a wider row), this tree's alone elsewhere, beside the bound of
+  chip_smoke.py's `_tracers_bound`.
 
 Times are device time per call (chip_smoke.py's device-sleep method, warm
 L2).  Exits non-zero without a CUDA device.
@@ -51,7 +63,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, build, mie_kernel  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.ops import (  # noqa: E402
+    adv_kernel, build, mie_kernel, tracers_kernel,
+)
 
 CSRC = os.path.join("wrfchem_arc_interactions_tpu_torch", "csrc")
 
@@ -172,6 +186,63 @@ def mie_call(lib, table, inputs, outs, blocks):
     return call
 
 
+def tracers_call(lib, args, pt, pd):
+    """A no-argument call of the multi-tracer kernel of `lib` on the
+    positional arguments `args` of `advect_tracers` (as
+    chip_smoke.tracer_inputs makes them), with limiter and clip if `pd`;
+    it returns the output."""
+    fn = lib.advect_tracers
+    fn.argtypes = tracers_kernel._ARGTYPES
+    fn.restype = ctypes.c_int
+    q_pad, phi, ru, rv, ww, mu_full, mu_new, grid, hx, dts = args
+    nt, nz, nyp, nxp = q_pad.shape
+    out = torch.empty((nt, nz, nyp - 6, nxp - 6), device=q_pad.device)
+    r_hi = torch.empty_like(out) if pd else None
+    ptrs = [a.data_ptr() for a in (q_pad, phi, pt, ru, rv, ww, mu_full, mu_new, grid.rdnw)]
+    code = tracers_kernel._BC_CODE
+
+    def call():
+        _checked(fn(*ptrs, None if r_hi is None else r_hi.data_ptr(), out.data_ptr(),
+                    *out.shape, float(grid.rdx), float(grid.rdy), float(dts), int(pd),
+                    int(pd), code[hx.bc_x], code[hx.bc_y], _stream()), "advect_tracers")
+        return out
+    return call
+
+
+def tracers_ab(dev, libs, parent, card):
+    """The multi-tracer section (see the module docstring): a list of rows."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    rows = []
+    for nx, counts in ((100, (219, 107, 47)), (1000, (47,))):
+        grid, _ = ideal.make_case(cs._cfg3(nx=nx), "squall2d_x", device=dev, bubble_amp=3.0)
+        for nt in counts:
+            args, pt, _ = cs.tracer_inputs(dev, grid, nt)
+            for pd in (False, True):
+                keys = ["tracers"]
+                if parent and nx <= tracers_kernel.widest_row(pd, grid.ny):
+                    keys.insert(0, "parent_tracers")
+                calls = {k: tracers_call(libs[k], args, pt, pd) for k in keys}
+                ref = tracers_kernel.advect_tracers_reference(*args, pt=pt, pd=pd, clip=pd)
+                for k, call in calls.items():
+                    out = call()
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, ref):
+                        raise RuntimeError(f"{k} at nt={nt}, nx={nx}, pd={pd}: max|d| "
+                                           f"{float((out - ref).abs().max())}, not bitwise")
+                del ref
+                row = {"nt": nt, "shape": [grid.nz, grid.ny, grid.nx], "pd": pd,
+                       "bound_ms": cs._tracers_bound(nt, grid.nz, grid.ny, grid.nx, pd)[0]}
+                for k in keys + keys[::-1]:
+                    row.setdefault(f"{k}_ms", []).append(
+                        cs._device_ms(calls[k], calls=10, trials=20))
+                print(f"advect_tracers {row} [{card}]")
+                rows.append(row)
+                del calls
+            del args, pt
+            torch.cuda.empty_cache()
+    return rows
+
+
 def config4_mie_inputs(dev):
     """Each bin's Mie inputs of one chem call of chip_smoke.py's config 4
     (100x100x50, bench.py's seed) after two steps."""
@@ -219,14 +290,17 @@ def main(argv=None) -> int:
     result = {"card": card, "sms": sms}
 
     # ---- sources: this tree's, the parent's, the floors
-    names = {"adv": "advect_scalar_5_3", "mie": "mie_cheb_eval"}
+    names = {"adv": "advect_scalar_5_3", "mie": "mie_cheb_eval", "tracers": "advect_tracers"}
     build.register_generated("ab_floors", FLOORS_SRC)
     names["floors"] = "ab_floors"
     if args.parent:
-        for key, src in (("parent_adv", "advect_scalar_5_3.cu"), ("parent_mie", "mie_cheb_eval.cu")):
+        for key, src in (("parent_adv", "advect_scalar_5_3.cu"), ("parent_mie", "mie_cheb_eval.cu"),
+                         ("parent_tracers", "advect_tracers.cu")):
             with open(os.path.join(args.parent, CSRC, src)) as f:
                 text = f.read()
             build.register_generated(f"ab_{key}", text)
+            if key == "parent_mie" and "mie_cheb_eval_shape" in text:
+                build.DROPPED_FLAGS["ab_parent_mie"] = build.DROPPED_FLAGS["mie_cheb_eval"]
             names[key] = f"ab_{key}"
             if key == "parent_adv":
                 build.register_generated("ab_parent_adv_loads", loads_only(text))
@@ -296,6 +370,9 @@ def main(argv=None) -> int:
         cases[f"config4_bin{b}"] = ins
     table = mie_kernel.packed_table(dev, mie_kernel.launch_shape(libs["mie"])["cell_stride"])
     G = mie_kernel.grid_matrix(dev)
+    if args.parent and hasattr(libs["parent_mie"], "mie_cheb_eval_shape"):
+        parent_table = mie_kernel.packed_table(
+            dev, mie_kernel.launch_shape(libs["parent_mie"])["cell_stride"])
     mie = {"bound_ms": cs._mie_bound(30 * nz * ny * nx)[0]}
     for case, ins in cases.items():
         ref = mie_kernel.cheb_eval_reference(*ins)
@@ -303,7 +380,10 @@ def main(argv=None) -> int:
         n = ins[2].numel()
         kernels = {"mie": mie_call(libs["mie"], table, ins, outs,
                                    mie_kernel.grid_blocks(libs["mie"], n, sms))}
-        if args.parent:
+        if args.parent and hasattr(libs["parent_mie"], "mie_cheb_eval_shape"):
+            kernels["parent_mie"] = mie_call(libs["parent_mie"], parent_table, ins, outs,
+                                             mie_kernel.grid_blocks(libs["parent_mie"], n, sms))
+        elif args.parent:
             kernels["parent_mie"] = mie_call(libs["parent_mie"], G, ins, outs,
                                              min(-(-n // 256), 7 * sms))
         row = {"elements": n, "cells_per_warp_mean": float(cs.cells_per_warp(*ins[:2]).float().mean())}
@@ -322,6 +402,11 @@ def main(argv=None) -> int:
         mie[case] = row
         del ref, outs
     result["mie_cheb_eval"] = mie
+    del cases
+
+    # ---- multi-tracer stage update
+    torch.cuda.empty_cache()
+    result["advect_tracers"] = tracers_ab(dev, libs, bool(args.parent), card)
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

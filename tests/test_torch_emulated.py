@@ -18,8 +18,8 @@ to its plain PyTorch version:
   by shuffle, and the rows a thread owns, on rows whose starts fall off 16
   bytes;
 - ``csrc/advect_tracers.cu`` at the small shapes that stress its tile, its
-  rings of planes and its slots, on every lateral boundary kind, with and
-  without the limiter;
+  rings of planes and its slots, and at rows wider than one tile (its x
+  tiles), on every lateral boundary kind, with and without the limiter;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
   substeps over a few blocks of its persistent grid.
 
@@ -100,9 +100,17 @@ def tracers_lib(tmp_path_factory):
 @pytest.mark.parametrize("pd", [False, True])
 @pytest.mark.parametrize("case", _boundary_cases(), ids=lambda c: "-".join(map(str, c)))
 def test_emulated_tracer_kernel_is_bitwise_its_plain_version(tracers_lib, case, pd):
+    out, ref, q = _emulated_tracers(tracers_lib, case, pd, 7 + case[0])
+    assert float((ref - q).abs().max()) > 1e-3            # the stage does something
+    assert torch.equal(out, ref)
+
+
+def _emulated_tracers(lib, case, pd, seed):
+    """(kernel output, plain output, stage input) of the emulated kernel on
+    seeded inputs at case (nz, ny, nx, bc_x, bc_y)."""
     nz, ny, nx, bc_x, bc_y = case
     _, tg = _grids(nz, ny, nx)
-    f = {k: _t(v) for k, v in _inputs(tg, seed=7 + nz).items()}
+    f = {k: _t(v) for k, v in _inputs(tg, seed=seed).items()}
     hx = HaloOps(bc_x=BCKind(bc_x), bc_y=BCKind(bc_y))
     q_pad, ru, rv = (hx.pad(f[k], 3).contiguous() for k in ("q", "ru", "rv"))
     ref = tracers_kernel.advect_tracers_reference(
@@ -110,25 +118,46 @@ def test_emulated_tracer_kernel_is_bitwise_its_plain_version(tracers_lib, case, 
         pt=f["pt"], pd=pd, clip=pd)
     out, r_hi = torch.full_like(ref, float("nan")), torch.full_like(ref, float("nan"))
     code = tracers_kernel._BC_CODE
-    err = tracers_lib.advect_tracers(
+    err = lib.advect_tracers(
         q_pad.data_ptr(), f["phi"].data_ptr(), f["pt"].data_ptr(), ru.data_ptr(),
         rv.data_ptr(), f["ww"].data_ptr(), f["mu_full"].data_ptr(), f["mu_new"].data_ptr(),
         tg.rdnw.data_ptr(), r_hi.data_ptr(), out.data_ptr(), *ref.shape, float(tg.rdx),
         float(tg.rdy), 6.0, int(pd), int(pd), code[hx.bc_x], code[hx.bc_y], None)
     assert err == 0
-    assert float((ref - f["q"]).abs().max()) > 1e-3            # the stage does something
-    assert torch.equal(out, ref)
+    return out, ref, f["q"]
 
 
 def test_emulated_tracer_kernel_refuses_a_row_too_wide(tracers_lib):
-    nz, ny, nx = 1, 2, 1200
-    z = torch.zeros((1, nz, ny + 6, nx + 6))
-    c = torch.zeros((1, nz, ny, nx))
-    err = tracers_lib.advect_tracers(
-        z.data_ptr(), c.data_ptr(), None, z.data_ptr(), z.data_ptr(), c.data_ptr(),
-        c.data_ptr(), c.data_ptr(), c.data_ptr(), c.data_ptr(), c.data_ptr(), 1, nz, ny, nx,
-        1.0, 1.0, 6.0, 1, 1, 0, 0, None)
-    assert err == tracers_kernel._ROW_TOO_WIDE
+    """No row is too wide any more: the one-tile grid spans 469 cells with
+    the limiter and 511 without (at two rows; 572 and 681 at one), and a row of
+    1,200 cells, which the kernel refused before it split rows into x
+    tiles, runs bitwise as its plain version."""
+    tracers_lib.advect_tracers_widest_row.restype = ctypes.c_int
+    widest = {(pd, ny): tracers_lib.advect_tracers_widest_row(pd, ny)
+              for pd in (0, 1) for ny in (1, 2, 100)}
+    assert widest == {(0, 1): 681, (0, 2): 511, (0, 100): 511,
+                      (1, 1): 572, (1, 2): 469, (1, 100): 469}
+    out, ref, _ = _emulated_tracers(tracers_lib, (1, 2, 1200, "periodic", "open"), True, 5)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("pd", [False, True])
+@pytest.mark.parametrize("bc", ["periodic", "open", "symmetric"])
+@pytest.mark.parametrize("width", ["W+1", "2W+5", "1000"])
+def test_emulated_tracer_kernel_x_tiles_are_bitwise_its_plain_version(tracers_lib, width, bc,
+                                                                       pd):
+    """Rows wider than one tile (W = the widest row the one-tile grid
+    spans, by mode) take x tiles: the faces at the tiles' edges read the
+    factors of the tiles' halo columns, and the domain's x edges map them
+    through the boundary.  At nz 2, ny 3 (open in y: symmetric needs 4
+    rows), bitwise."""
+    tracers_lib.advect_tracers_widest_row.restype = ctypes.c_int
+    w = tracers_lib.advect_tracers_widest_row(int(pd), 3)
+    nx = {"W+1": w + 1, "2W+5": 2 * w + 5, "1000": 1000}[width]
+    bc_y = "periodic" if bc == "periodic" else "open"
+    out, ref, q = _emulated_tracers(tracers_lib, (2, 3, nx, bc, bc_y), pd, 17 + nx)
+    assert float((ref - q).abs().max()) > 1e-3
+    assert torch.equal(out, ref)
 
 
 @pytest.fixture(scope="module")

@@ -203,9 +203,10 @@ def test_lw_fluxes(aerosol, cloud):
         assert _rel(j[name], o[name]) <= 1e-4, name
 
 
-def test_radiation_driver_config3():
-    """The driver on the squall-line state with seeded cloud water and
-    aerosol optics, at noon (so the SW path does real work)."""
+def _driver_inputs():
+    """Config 3's squall-line state at 16x4x12 with seeded cloud water and
+    aerosol optics, and the time of a noon call (the SW path does real
+    work): (jc, tc, jg, tg, js, ts, t_utc, jd)."""
     jc, tc = _cfg3(jcfg), _cfg3(tcfg)
     jg, js = jideal.make_case(jc, "squall2d_x", bubble_amp=3.0)
     js = {k: np.asarray(v) for k, v in js.items()}
@@ -221,10 +222,47 @@ def test_radiation_driver_config3():
     tg = jax_grid_to_port(jg)
     ts = {k: _t(v) for k, v in js.items()}
     t_utc, jd = np.float32(43200.0 + 60.0), np.float32(172.5 + 60.0 / 86400.0)
+    return jc, tc, jg, tg, js, ts, t_utc, jd
+
+
+RAD_OUT = ("rthraten_sw", "rthraten_lw", "swdown", "swupt", "olr", "glw", "cldfra")
+
+
+def test_radiation_driver_config3():
+    """The driver on the squall-line state with seeded cloud water and
+    aerosol optics, at noon (so the SW path does real work)."""
+    jc, tc, jg, tg, js, ts, t_utc, jd = _driver_inputs()
     jout = jdrv.radiation_driver({k: jnp.asarray(v) for k, v in js.items()}, jg, jc,
                                  jnp.float32(t_utc), julian_day=jnp.float32(jd))
     tout = tdrv.radiation_driver(ts, tg, tc, t_utc, julian_day=jd)
     assert float(np.asarray(jout["swdown"]).max()) > 100.0
     assert float(np.asarray(jout["cldfra"]).max()) > 0.0
-    for name in ("rthraten_sw", "rthraten_lw", "swdown", "swupt", "olr", "glw", "cldfra"):
+    for name in RAD_OUT:
         assert _rel(jout[name], tout[name]) <= 1e-4, name
+
+
+def test_radiation_driver_column_chunks(monkeypatch):
+    """With the chunk patched below the 64 columns (six chunks of 10 and a
+    shorter one of 4), the chunked driver equals the unchunked one bit for
+    bit, and agrees with the reference driver chunked likewise (its chunks
+    of 24 padded by edge replication) to 1e-4, as unchunked."""
+    jc, tc, jg, tg, js, ts, t_utc, jd = _driver_inputs()
+    whole = tdrv.radiation_driver(ts, tg, tc, t_utc, julian_day=jd)
+    calls = []
+    inner = tsw.sw_fluxes
+
+    def counting(*args, **kw):
+        calls.append(args[0].shape[-1])
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(tdrv, "COL_CHUNK", 10)
+    monkeypatch.setattr(tdrv, "sw_fluxes", counting)
+    chunked = tdrv.radiation_driver(ts, tg, tc, t_utc, julian_day=jd)
+    assert calls == [10] * 6 + [4]
+    for name in RAD_OUT:
+        assert torch.equal(whole[name], chunked[name]), name
+    monkeypatch.setattr(jdrv, "COL_CHUNK", 24)
+    jout = jdrv.radiation_driver({k: jnp.asarray(v) for k, v in js.items()}, jg, jc,
+                                 jnp.float32(t_utc), julian_day=jnp.float32(jd))
+    for name in RAD_OUT:
+        assert _rel(jout[name], chunked[name]) <= 1e-4, name

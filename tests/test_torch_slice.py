@@ -242,10 +242,10 @@ print("OK")
 
 
 @pytest.mark.parametrize("change", [
-    {"chem": (("chem_opt", "cbmz_mosaic_8bin"),)},
-    {"chem": (("chem_opt", "mosaic_4bin"), ("cldchem_onoff", True))},
-    {"chem": (("chem_opt", "cbmz_mosaic_4bin"), ("wetscav_onoff", True))},
-    {"chem": (("chem_opt", "mosaic_4bin"), ("emiss_opt", 1))},
+    {"dynamics": (("h_sca_adv_order", 7),)},
+    {"dynamics": (("diff_6th_opt", 1),)},
+    {"dynamics": (("km_opt", "tke"),)},
+    {"fdda": (("grid_fdda", True),)},
     {"physics": (("bl_pbl_physics", "ysu"),)},
     {"dynamics": (("moist_adv_opt", "mono"),)},
 ])

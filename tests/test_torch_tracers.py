@@ -8,7 +8,8 @@ Tolerance: 1e-5 of max |q| (float32; the same operations in the same
 order, up to the TPU kernel's in-kernel factor recomputation).  The same
 comparison with the scan body at the small shapes that stress the CUDA
 kernel's tile and its ring of planes (1 to 5 levels, one row, rows that do
-not fill the last tile, rows narrower and wider than a warp).  The
+not fill the last tile, rows narrower and wider than a warp), and on a row
+of 1,000 cells, which the kernel splits into x tiles.  The
 wrapper's input checks, and on the CUDA card the kernel against its plain
 version at all of these shapes (skipped without one).
 """
@@ -242,18 +243,36 @@ def test_kernel_matches_plain_on_gpu(case):
 
 @pytest.mark.cuda
 def test_kernel_rejects_a_row_too_wide_on_gpu():
-    """A tile spans the x row: a row that no tile of two rows can hold in a
-    block's shared memory raises instead of launching."""
+    """No row is too wide: a row of 1,200 cells, which the kernel refused
+    before it split rows into x tiles, matches its plain version on the
+    card, with and without the limiter, on each boundary kind."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     nz, ny, nx = 2, 4, 1200
+    assert nx > tracers_kernel.widest_row(False) >= tracers_kernel.widest_row(True)
+    _, tg = _grids(nz, ny, nx)
     dev = torch.device("cuda")
-    _, tg = _grids(nz, ny, 13)
     g = tg.to(dev)
-    hx = THalo()
-    z = torch.zeros((1, nz, ny, nx), device=dev)
-    mu = torch.ones((ny, nx), device=dev)
-    with pytest.raises(ValueError, match="too wide"):
-        tracers_kernel.advect_tracers(hx.pad(z, 3), z, hx.pad(z[0], 3), hx.pad(z[0], 3),
-                                      torch.zeros((nz + 1, ny, nx), device=dev), mu, mu, g,
-                                      hx, DTS, pd=True, clip=True)
+    f = {k: _t(v).to(dev) for k, v in _inputs(tg, seed=8).items()}
+    for bc in ("periodic", "open", "symmetric"):
+        hx = THalo(bc_x=TBC(bc), bc_y=TBC(bc))
+        args = (hx.pad(f["q"], 3), f["phi"], hx.pad(f["ru"], 3), hx.pad(f["rv"], 3),
+                f["ww"], f["mu_full"], f["mu_new"], g, hx, DTS)
+        for pd in (False, True):
+            out = tracers_kernel.advect_tracers(*args, pt=f["pt"], pd=pd, clip=pd)
+            ref = tracers_kernel.advect_tracers_reference(*args, pt=f["pt"], pd=pd, clip=pd)
+            assert torch.equal(out, ref), (bc, pd)
+
+
+@pytest.mark.parametrize("pd", [False, True])
+@pytest.mark.parametrize("bc", ["periodic", "open", "symmetric"])
+def test_plain_matches_scan_body_on_a_row_wider_than_a_tile(bc, pd):
+    """At nx = 1000 (the CUDA kernel splits such a row into x tiles; the
+    reference's scan body runs any nx), nz 2, ny 4, against the scan body."""
+    nz, ny, nx = 2, 4, 1000
+    jg, tg = _grids(nz, ny, nx)
+    f = _inputs(tg, seed=9)
+    bc_y = "open" if bc == "symmetric" else bc
+    want = _scan_body(jg, f, bc, pd, clip=pd, bc_y=bc_y)
+    out = _port(tg, f, bc, pd, clip=pd, bc_y=bc_y)
+    assert _max_rel(want, out, f["q"]) <= 1e-5

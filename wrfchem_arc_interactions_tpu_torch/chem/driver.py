@@ -8,18 +8,23 @@ The operator order is
   partitioning, coagulation, moving-center remap) -> 7 wet scavenging ->
   8 optical properties
 
-Ported: stage 1 (`aux.dry_deposition`), stages 3-4 for the CBM-Z packages
-(`photolysis.j_scales` or the gray `aux.photolysis_profile`, then
-`gas.rate_constants` and `gas.integrate` — on a CUDA tensor the generated
-ROS2 kernel — or `gas.integrate_adaptive`), stage 6
-(`nucleation.nucleate`, `thermo.partition`, `coag.coagulate`,
-`movesect.remap`) and stage 8 (`optics.aerosol_optics`).  Config 3 (fixed
-MOSAIC bins, no gas mechanism) runs 1 and 8; config 4 runs 1, 3-4, 6 and 8.
-Stages 2, 5 and 7 raise `NotImplementedError` when their switch is on.
-Every stage is column- or cell-local: no halos.
+Every stage is ported, for the 4- and the 8-bin MOSAIC packages alone or
+with CBM-Z: 1 `aux.dry_deposition`; 2 (``emiss_opt``, with an emissions
+dict) `aux.apply_emissions`, with `aux.plume_rise_profile` for elevated
+``elev_`` sources; 3-4 for the CBM-Z packages `photolysis.j_scales` or the
+gray `aux.photolysis_profile`, then `gas.rate_constants` and
+`gas.integrate` (on a CUDA tensor the generated ROS2 kernel) or
+`gas.integrate_adaptive`; 5 (``cldchem_onoff``) `aux.cw_exchange` and
+`aux.cloud_chemistry`; 6 `nucleation.nucleate`, `thermo.partition`,
+`coag.coagulate`, `movesect.remap`; 7 (``wetscav_onoff``)
+`aux.wet_scavenging`; 8 `optics.aerosol_optics` (the Mie kernel once per
+bin).  Config 3 (fixed MOSAIC bins, no gas mechanism) runs 1 and 8; config
+4 runs 1, 3-4, 6 and 8.  Every stage is column- or cell-local: no halos.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 
@@ -34,9 +39,6 @@ from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import (
 )
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
-from wrfchem_arc_interactions_tpu_torch.utils.support import (
-    SLICE_CHEM, unported_chem_stages,
-)
 
 
 def _nbin(cfg: Config) -> int:
@@ -48,19 +50,13 @@ def _has_gas(cfg: Config) -> bool:
 
 
 def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
-                time_s=0.0, julian_day=JULIAN_DAY) -> State:
+                time_s=0.0, emissions: Optional[Dict[str, torch.Tensor]] = None,
+                julian_day=JULIAN_DAY) -> State:
     """One chem call of length `dt` on the state.  `time_s` (seconds of UTC
     time since the run's day start) and `julian_day` set the sun for the
-    photolysis rates.  (The reference also takes the halo context, which no
-    stage reads, and emissions, which are not ported yet.)"""
-    if cfg.chem.chem_opt not in (ChemOpt.MOSAIC_4BIN, ChemOpt.CBMZ_MOSAIC_4BIN):
-        raise NotImplementedError(
-            f"chemistry (chem_opt={cfg.chem.chem_opt.value}) is not ported yet; "
-            f"it comes with {SLICE_CHEM}")
-    stages = unported_chem_stages(cfg)
-    if stages:
-        raise NotImplementedError(
-            f"chem stages {stages} are not ported yet; they come with {SLICE_CHEM}")
+    photolysis rates.  `emissions` ({species or ``elev_`` species: (ny, nx)
+    flux, ``heat_mw``: (ny, nx)}) feed stage 2 under ``emiss_opt``.  (The
+    reference also takes the halo context, which no stage reads.)"""
     ch = cfg.chem
     nbin = _nbin(cfg)
     diag = diagnose(state, grid, cfg.moist_species())
@@ -71,6 +67,7 @@ def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
     dz = (ph_full[1:] - ph_full[:-1]) / c.G
     qv = state["qv"] if "qv" in state else torch.zeros_like(t_air)
     qc = state["qc"] if "qc" in state else torch.zeros_like(t_air)
+    qr = state["qr"] if "qr" in state else torch.zeros_like(t_air)
     # relative humidity w.r.t. liquid
     es = 611.2 * torch.exp(c.SVP2 * (t_air - c.SVPT0) / (t_air - c.SVP3))
     qvs = c.EP_2 * es / torch.clamp(diag.p_full - es, min=1.0)
@@ -83,6 +80,18 @@ def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
     if ch.drydep_opt:
         chem = aux.dry_deposition(chem, dz[0], dt, gas.GAS_SPECIES,
                                   ust=state.get("ust"), nbin=nbin)
+
+    # 2. emissions (surface fluxes + Briggs plume rise for elevated `elev_*`
+    # sources carrying a `heat_mw` entry)
+    if ch.emiss_opt and emissions:
+        plume_w = None
+        if any(k.startswith("elev_") for k in emissions):
+            z_w = (ph_full - ph_full[0:1]) / c.G
+            u_mean = torch.sqrt(state["u"][0] ** 2 + state["v"][0] ** 2)
+            heat = emissions["heat_mw"] if "heat_mw" in emissions else torch.ones_like(u_mean)
+            plume_w = aux.plume_rise_profile(heat, u_mean, z_w)
+        chem = aux.apply_emissions(chem, emissions, rho_air[0], dz[0], dt,
+                                   plume_w=plume_w, rho=rho_air, dz=dz)
 
     # 3-4. photolysis profile (coupled to the computed cloud and aerosol
     # optical state — the chem->J ARC pathway) + gas-phase mechanism
@@ -116,6 +125,13 @@ def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
         for i, s in enumerate(gas.GAS_SPECIES):
             chem[f"chem_{s}"] = conc[i] / m_air * 1e6
 
+    # 5. cloud chemistry: activation/resuspension bookkeeping of the
+    # cloud-borne (_cw) phase, then aqueous S(IV)->S(VI) into the droplets
+    if ch.cldchem_onoff:
+        w_c = 0.5 * (state["w"][:-1] + state["w"][1:])
+        chem = aux.cw_exchange(chem, qc, t_air, diag.p_full, rho_air, w_c, nbin)
+        chem = aux.cloud_chemistry(chem, qc, t_air, nbin, dt)
+
     # 6. aerosol dynamics
     if ch.aerchem_onoff:
         chem = nucleation.nucleate(chem, rho_air, rh, nbin, dt)
@@ -123,6 +139,10 @@ def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
         chem = coag.coagulate(chem, rho_air, nbin, dt)
         # moving-center bin remap: growth moves particles between sections
         chem = movesect.remap(chem, nbin)
+
+    # 7. wet scavenging (size-resolved per bin: Greenfield-gap collection)
+    if ch.wetscav_onoff:
+        chem = aux.wet_scavenging(chem, qr, dt, gas.GAS_SPECIES, nbin=nbin)
 
     # 8. aerosol optical properties (the ARC direct-effect bridge)
     out = dict(state)

@@ -34,8 +34,8 @@
 //
 // Design: shared-memory planes, fixed slots and a march in z.
 //
-// - A block owns a tile of rows over the whole x row for one tracer and
-//   marches from k = 0 to nz - 1.  Its slots are the (ty + 2) x (nx + 1)
+// - A block owns a tile of rows over the whole x row (or an x tile of a
+//   wide row, below) for one tracer and marches from k = 0 to nz - 1.  Its slots are the (ty + 2) x (nx + 1)
 //   points of the tile with a one-row halo and one more column; slot
 //   (rr, i) is cell (j0 + rr - 1, i), its west x face and its south y face.
 //   Each thread owns four slots (eight for a wide row) for the whole march,
@@ -45,6 +45,20 @@
 //   that the compiler interleaves their work; only the stores look at the
 //   flags.  The tile height divides ny evenly and shrinks for rows too wide
 //   for the shared memory.
+// - A row wider than one tile can hold at two rows (`widest_row_of`: 469
+//   cells in the limiter's grids, 511 without) is split into x tiles, each
+//   at most as wide as four slots a thread cover at its height (254 cells
+//   at 2 rows, 100 at 8) and as tall as the shared memory allows.  A tile of tw
+//   cells carries the 3-cell x halo in its q, ru and rv planes, and its
+//   slots are (ty + 2) x (tw + 2): one more column on each side, cells
+//   i0 - 1 and i0 + tw, whose factors the faces at the tile's edges read.
+//   Such a column forms r_lo on the tile, as the y halo rows do, and in
+//   grid LIMITED reads r_hi from device memory.  Each cell, and so each
+//   store, belongs to exactly one tile; a face that two tiles share is
+//   computed by both, in shared memory only.  A tile's rows do not form one
+//   piece of the padded array, so a plane is copied row by row, its rows in
+//   shared memory at a pitch congruent to the padded row's modulo 4 floats:
+//   the one shift of the plane then aligns every row's 16-byte pieces.
 // - Planes come by asynchronous copy (cp.async), started at least one
 //   iteration before their use, into rings in shared memory: q (the tile's
 //   rows and three halo rows are one contiguous piece of the padded array,
@@ -64,10 +78,15 @@
 // - The factor of a neighbour outside the domain is read through the
 //   lateral boundary's index map (periodic wrap, open edge replication,
 //   symmetric reflection), which is what the reference's halo padding of r
-//   by one cell gives for every boundary kind.  In x the mapped cell is
-//   always in the block's row.  In y an open or symmetric boundary maps
-//   the halo row onto a row of the tile or its other halo row; a periodic
-//   one forms r_lo from the periodic padding of q (phi and ww read at the
+//   by one cell gives for every boundary kind.  In x, with one tile over
+//   the row, the mapped cell is always in the block's row.  With x tiles
+//   the map applies at the domain's two x edges only: an open or symmetric
+//   boundary maps the halo column onto a column of the edge tile (or the
+//   tile's other halo column), and a periodic one forms r_lo there from the
+//   periodic padding of q (phi and ww read at the wrapped column) and reads
+//   r_hi from the far side.  In y an open or symmetric boundary maps the
+//   halo row onto a row of the tile or its other halo row; a periodic one
+//   forms r_lo from the periodic padding of q (phi and ww read at the
 //   wrapped row), which gives the far side's value bit for bit, and reads
 //   r_hi from the far side.
 // - Residency: three blocks on an SM without the limiter, two with it
@@ -123,18 +142,23 @@ struct Args {
   int nt, nz, ny, nx;
   int bcx, bcy;          // 0 periodic, 1 open, 2 symmetric
   int ty, tiles;         // rows of a tile, tiles over y
+  int tx, xtiles;        // x tiles: cells of a tile, tiles over x (XT)
+  int pitch, ulog;       // XT: row pitch of a plane, log2 of copy units a row
   float rdx, rdy, dts;
 };
 
 // Shared-memory layout in floats, the same on host and device.  A block's
 // slots are the (ty + 2) x (nx + 1) points of its tile with a one-row halo
 // and one more column: slot (rr, i) is cell (j0 + rr - 1, i), its west x
-// face and its south y face.  Every plane starts on a 16-byte boundary and
-// has room for the shift of up to 3 floats that lets its copy from device
-// memory go in 16-byte pieces.  A thread computes every kind of flux for
-// every slot it owns and stores only what the slot is, so a read may fall a
-// row before the first q plane (`lead`) or a few slots after the last plane
-// (`tail`): both are inside the block's allocation.
+// face and its south y face.  With x tiles of tx cells (`xt`) they are the
+// (ty + 2) x (tx + 2) points of the tile with a one-row and a one-column
+// halo, and a plane's rows lie `pitch` floats apart.  Every plane starts on
+// a 16-byte boundary and has room for the shift of up to 3 floats that lets
+// its copy from device memory go in 16-byte pieces.  A thread computes
+// every kind of flux for every slot it owns and stores only what the slot
+// is, so a read may fall a row before the first q plane (`lead`) or a few
+// slots after the last plane (`tail`): both are inside the block's
+// allocation.
 struct Layout {
   int qp, vp, sp;                   // q plane, ru/rv plane, slot plane
   int q, ru, rv, rl, rh, fx, fy;    // offsets
@@ -143,12 +167,13 @@ struct Layout {
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
-__host__ __device__ inline Layout layout(int mode, int ty, int nx, int slots) {
+__host__ __device__ inline Layout layout(int mode, int ty, int nx, int slots, bool xt = false,
+                                         int tx = 0, int pitch = 0) {
   Layout l;
-  const int px = nx + 2 * PAD;
+  const int px = xt ? pitch : nx + 2 * PAD, w = xt ? tx + 2 : nx + 1;
   l.qp = round4((ty + 2 * PAD) * px + 3);
   l.vp = round4((ty + 3) * px + 3);
-  l.sp = round4((ty + 2) * (nx + 1));
+  l.sp = round4((ty + 2) * w);
   l.q = round4(px);                                  // lead
   l.ru = l.q + (q_ahead(mode) + 2) * l.qp;
   l.rv = l.ru + (v_ahead(mode) + 1) * l.vp;
@@ -156,7 +181,7 @@ __host__ __device__ inline Layout layout(int mode, int ty, int nx, int slots) {
   l.rh = l.rl + (mode != PLAIN ? R_RING * l.sp : 0);
   l.fx = l.rh + (mode == LIMITED ? R_RING * l.sp : 0);
   l.fy = l.fx + (mode == FACTOR ? 2 : 1) * l.sp;     // FACTOR keeps L and A apart
-  l.total = l.fy + (mode == FACTOR ? 2 : 1) * l.sp + round4(slots - l.sp + nx + 2);   // tail
+  l.total = l.fy + (mode == FACTOR ? 2 : 1) * l.sp + round4(slots - l.sp + w + 1);   // tail
   return l;
 }
 
@@ -235,6 +260,29 @@ __device__ __forceinline__ void copy_plane(float* dst, const float* src, int n) 
   if (e < n) copy_async(dst + sh + e, src + e);
 }
 
+// n rows of len floats, row r from src + r * spitch to a plane whose rows
+// are dpitch apart (dpitch = spitch modulo 4): element e of row r lands at
+// dst[shift(src) + r * dpitch + e], so that every row's source and
+// destination are aligned alike, and goes in 16-byte pieces but for the few
+// floats before the row's first and after its last 16-byte boundary.  Each
+// row takes 1 << ulog units of work (pieces, then head and tail floats).
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int n, int len,
+                                          int spitch, int dpitch, int ulog) {
+  dst += shift(src);
+  for (int c = threadIdx.x; c < (n << ulog); c += THREADS) {
+    const int r = c >> ulog, u = c & ((1 << ulog) - 1);
+    const float* const s = src + (size_t)r * spitch;
+    float* const d = dst + r * dpitch;
+    const int head = (4 - shift(s)) & 3, pieces = (len - head) >> 2;
+    if (u < pieces) {
+      copy_async16(d + head + 4 * u, s + head + 4 * u);
+    } else {
+      const int k = u - pieces, e = k < head ? k : 4 * pieces + k;
+      if (e < len) copy_async(d + e, s + e);
+    }
+  }
+}
+
 // What a slot is, fixed for the whole march.
 enum : int {
   IS_X = 1,        // owns an x face of the tile (rows 1 .. rows, any column)
@@ -256,17 +304,23 @@ enum : int {
 //            r_hi to device memory.
 //   LIMITED: r_lo on chip again, r_hi from device memory, limited fluxes,
 //            update.
-template <int MODE, int CPT>
+// XT: the tile is one of a.xtiles x tiles of the row (its planes carry the
+// x halo and a row pitch of their own); else it spans the row.
+template <int MODE, int CPT, bool XT>
 __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, int clip) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool PD = MODE != PLAIN;
   constexpr int QA = q_ahead(MODE), QR = QA + 2, VA = v_ahead(MODE), VR = VA + 1;
-  const int nx = a.nx, ny = a.ny, nz = a.nz, w = nx + 1;
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
   const int px = nx + 2 * PAD, pyx = (ny + 2 * PAD) * px, nyx = ny * nx;
   const int j0 = (blockIdx.x % a.tiles) * a.ty;
-  const int t = blockIdx.x / a.tiles;
+  const int t = XT ? blockIdx.x / a.tiles / a.xtiles : blockIdx.x / a.tiles;
+  const int i0 = XT ? (blockIdx.x / a.tiles % a.xtiles) * a.tx : 0;
+  const int tw = XT ? min(a.tx, nx - i0) : nx;       // cells of the tile's rows
+  const int w = XT ? tw + 2 : nx + 1;                // slots of a slot row
+  const int pp = XT ? a.pitch : px;                  // row pitch of a plane
   const int rows = min(a.ty, ny - j0);
-  const Layout l = layout(MODE, a.ty, nx, CPT * THREADS);
+  const Layout l = layout(MODE, a.ty, nx, CPT * THREADS, XT, a.tx, a.pitch);
   float* const qs = smem + l.q;
   float* const rus = smem + l.ru;
   float* const rvs = smem + l.rv;
@@ -274,9 +328,9 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
   float* const rhs = smem + l.rh;
   float* const fxs = smem + l.fx;
   float* const fys = smem + l.fy;
-  const float* const q_t = a.q + (size_t)t * nz * pyx + (size_t)j0 * px;
-  const float* const ru_t = a.ru + (size_t)(j0 + 2) * px;   // one halo row below the tile
-  const float* const rv_t = a.rv + (size_t)(j0 + 2) * px;
+  const float* const q_t = a.q + (size_t)t * nz * pyx + (size_t)j0 * px + i0;
+  const float* const ru_t = a.ru + (size_t)(j0 + 2) * px + i0;   // one halo row below the tile
+  const float* const rv_t = a.rv + (size_t)(j0 + 2) * px + i0;
   const float* const phi_t = a.phi + (size_t)t * nz * nyx;
   const float* const pt_t = a.pt == nullptr ? nullptr : a.pt + (size_t)t * nz * nyx;
   float* const r_hi_t = PD ? a.r_hi + (size_t)t * nz * nyx : nullptr;
@@ -292,28 +346,36 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
   const int east_edge = bc_map(nx, nx, a.bcx) - nx;        // donor of face nx, flux <= 0
   const int south_edge = (plane_row(j0 - 1) - 1) * w;      // donor of row 1's face
   const int north_edge = (plane_row(j0 + rows) - (rows + 1)) * w;
+  // x tiles: slot column c is cell i0 + c - 1; its halo columns hold data
+  // inside the domain or on a periodic boundary, and only the domain's
+  // edges map a donor through the boundary
+  const bool x_mapped = XT && a.bcx != 0;
 
   int flags[CPT], oq[CPT], og[CPT];
   float mu_f[CPT], mu_n[CPT];
 #pragma unroll
   for (int m = 0; m < CPT; ++m) {
     const int s = threadIdx.x + m * THREADS;
-    const int rr = min(s / w, rows + 1), i = s - (s / w) * w, j = j0 + rr - 1;
+    const int rr = min(s / w, rows + 1), c = s - (s / w) * w, j = j0 + rr - 1;
+    const int i = XT ? i0 + c - 1 : c;
     int f = 0;
     if (s < (rows + 2) * w) {
       const bool in_tile = rr >= 1 && rr <= rows;
-      if (in_tile) f |= IS_X;
-      if (rr >= 1 && i < nx) f |= IS_Y;
-      if (in_tile && i < nx) f |= IS_CELL;
-      if (i < nx && held(j)) f |= IS_HELD;
-      if (i == 0) f |= FIRST;
-      if (i == nx) f |= LAST;
+      const bool cell_col = XT ? c >= 1 && c <= tw : i < nx;
+      const bool held_col = XT ? (i >= 0 && i < nx) || a.bcx == 0 : i < nx;
+      if (in_tile && (!XT || c >= 1)) f |= IS_X;
+      if (rr >= 1 && cell_col) f |= IS_Y;
+      if (in_tile && cell_col) f |= IS_CELL;
+      if (held_col && held(j)) f |= IS_HELD;
+      if (XT ? x_mapped && i == 0 && c == 1 : i == 0) f |= FIRST;
+      if (XT ? x_mapped && i == nx && c == tw + 1 : i == nx) f |= LAST;
       if (rr == 1) f |= SOUTH;
       if (rr == rows + 1) f |= NORTH;
     }
     flags[m] = f;
-    oq[m] = (rr + 2) * px + i + PAD;       // a slot past the last row reads that row's q
-    og[m] = (f & IS_HELD) ? bc_map(j, ny, a.bcy) * nx + i : 0;
+    // a slot past the last row reads that row's q
+    oq[m] = XT ? (rr + 2) * pp + c + 2 : (rr + 2) * px + i + PAD;
+    og[m] = (f & IS_HELD) ? bc_map(j, ny, a.bcy) * nx + (XT ? bc_map(i, nx, a.bcx) : i) : 0;
     mu_f[m] = (f & IS_CELL) && MODE != FACTOR && pt_t != nullptr ? a.mu_full[og[m]] : 0.0f;
     mu_n[m] = (f & IS_CELL) && MODE != FACTOR ? a.mu_new[og[m]] : 1.0f;
   }
@@ -323,18 +385,22 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
     return qs + (lev % QR) * l.qp + shift(q_t + (size_t)lev * pyx);
   };
   auto ru_at = [&](int lev) {       // indexed like q: two rows further down
-    return rus + (lev % VR) * l.vp + shift(ru_t + (size_t)lev * pyx) - 2 * px;
+    return rus + (lev % VR) * l.vp + shift(ru_t + (size_t)lev * pyx) - 2 * pp;
   };
   auto rv_at = [&](int lev) {
-    return rvs + (lev % VR) * l.vp + shift(rv_t + (size_t)lev * pyx) - 2 * px;
+    return rvs + (lev % VR) * l.vp + shift(rv_t + (size_t)lev * pyx) - 2 * pp;
+  };
+  auto fetch = [&](float* dst, const float* src, int n) {
+    if (XT) copy_rows(dst, src, n, tw + 2 * PAD, px, pp, a.ulog);
+    else copy_plane(dst, src, n * px);
   };
   auto fetch_q = [&](int lev) {
-    copy_plane(qs + (lev % QR) * l.qp, q_t + (size_t)lev * pyx, (rows + 2 * PAD) * px);
+    fetch(qs + (lev % QR) * l.qp, q_t + (size_t)lev * pyx, rows + 2 * PAD);
   };
   // mass fluxes of the tile's rows, one halo row below and two above
   auto fetch_v = [&](int lev) {
-    copy_plane(rus + (lev % VR) * l.vp, ru_t + (size_t)lev * pyx, (rows + 3) * px);
-    copy_plane(rvs + (lev % VR) * l.vp, rv_t + (size_t)lev * pyx, (rows + 3) * px);
+    fetch(rus + (lev % VR) * l.vp, ru_t + (size_t)lev * pyx, rows + 3);
+    fetch(rvs + (lev % VR) * l.vp, rv_t + (size_t)lev * pyx, rows + 3);
   };
 
   // ---- before the march: the planes that the first iterations expect
@@ -407,11 +473,11 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
         }
         {      // y face between rows j-1 and j
           const float vel = rvk[oq[m]];
-          const float hi = flux5(vel, q[-3 * px], q[-2 * px], q[-px], q[0], q[px], q[2 * px]);
+          const float hi = flux5(vel, q[-3 * pp], q[-2 * pp], q[-pp], q[0], q[pp], q[2 * pp]);
           float flux = hi, anti = 0.0f;
           if (PD) {
             const int ds = (f & SOUTH) ? south_edge : -w, dn = (f & NORTH) ? north_edge : 0;
-            const float lo = flux1(vel, q[-px], q[0]);
+            const float lo = flux1(vel, q[-pp], q[0]);
             const float low = lo * rlk[s + (lo > 0.0f ? ds : dn)];
             anti = hi - low;
             flux = MODE == FACTOR ? low : low + anti * rhk[s + (anti > 0.0f ? ds : dn)];
@@ -466,7 +532,7 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
     }
 
     if (PD && k + 2 < nz) {
-      // ---- r_lo of level k+2 on the tile and its held halo rows
+      // ---- r_lo of level k+2 on the tile and its held halo rows (and columns)
       const int lev = k + 2;
       const bool top = lev + 1 == nz;
       const float rd = a.rdnw[lev];
@@ -481,8 +547,8 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
         const float* const q = ql + o;
         const float zu = top ? 0.0f : -flux1(-ww_n[m], q[0], qu[o]);
         const float r = factor(fmaxf(phi_n[m], 0.0f), flux1(rul[o], q[-1], q[0]),
-                               flux1(rul[o + 1], q[0], q[1]), flux1(rvl[o], q[-px], q[0]),
-                               flux1(rvl[o + px], q[0], q[px]), low_z[m], zu, rd, a);
+                               flux1(rul[o + 1], q[0], q[1]), flux1(rvl[o], q[-pp], q[0]),
+                               flux1(rvl[o + pp], q[0], q[pp]), low_z[m], zu, rd, a);
         if (flags[m] & IS_HELD) rl[s] = r;
         low_z[m] = zu;
       }
@@ -495,45 +561,94 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
   }
 }
 
+// The tallest tile whose slots the block's threads cover and that leaves
+// room for the mode's resident blocks on an SM, else the tallest that fits
+// at all (2 rows at least, so that a symmetric boundary's reflected row
+// stays in the tile or its halo); tiles of even height over ny.  With one
+// tile over the row (xt false) the row must fit; with x tiles (xt) each is
+// as wide as the slots allow at that height, its width in *tx.  Returns the
+// tile height, or 0 where none fits.
 template <int MODE, int CPT>
-int launch(Args a, int clip, cudaStream_t s) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      stage_kernel<MODE, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  // the tallest tile whose slots the block's threads cover and that leaves
-  // room for the mode's resident blocks on an SM, else the tallest that fits
-  // at all (2 rows at least, so that a symmetric boundary's reflected row
-  // stays in the tile or its halo); tiles of even height over ny
+int tile_rows(const Args& a, bool xt, int* tx) {
   const int least = a.ny > 1 ? 2 : 1;
   const int most = (a.ny + TY_MAX - 1) / TY_MAX;
   const int budgets[2] = {SMEM_SM / resident(MODE) - SMEM_RESERVED, SMEM_MAX};
-  int ty = 0;
-  for (int b = 0; b < 2 && ty < least; ++b)
-    for (ty = (a.ny + most - 1) / most; ty >= least; --ty)
-      if ((ty + 2) * (a.nx + 1) <= CPT * THREADS &&
-          layout(MODE, ty, a.nx, CPT * THREADS).total * (int)sizeof(float) <= budgets[b])
-        break;
-  if (ty < least) return -1;           // the x row is too wide for a tile
+  for (int b = 0; b < 2; ++b)
+    for (int ty = (a.ny + most - 1) / most; ty >= least; --ty) {
+      if (!xt) {
+        if ((ty + 2) * (a.nx + 1) <= CPT * THREADS &&
+            layout(MODE, ty, a.nx, CPT * THREADS).total * (int)sizeof(float) <= budgets[b])
+          return ty;
+        continue;
+      }
+      for (int w = CPT * THREADS / (ty + 2) - 2; w >= 2; --w)
+        if (layout(MODE, ty, a.nx, CPT * THREADS, true, w, w + 2 * PAD + 3).total *
+            (int)sizeof(float) <= budgets[b]) {
+          *tx = w;
+          return ty;
+        }
+    }
+  return 0;
+}
+
+// The widest x row that one tile of the mode's grid spans, with four or
+// eight slots a thread (whether a row fits only narrows as it widens).  Not
+// on the launch path: `launch_mode` tries the one-tile grid itself.
+template <int MODE>
+int widest_row_of(int ny) {
+  Args a{};
+  a.ny = ny;
+  int lo = 0, hi = 4096;                   // fits at lo (or lo = 0), not at hi
+  while (hi - lo > 1) {
+    a.nx = (lo + hi) / 2;
+    const bool fits =
+        tile_rows<MODE, 4>(a, false, nullptr) > 0 || tile_rows<MODE, 8>(a, false, nullptr) > 0;
+    (fits ? lo : hi) = a.nx;
+  }
+  return lo;
+}
+
+template <int MODE, int CPT, bool XT>
+int launch(Args a, int ty, int clip, cudaStream_t s) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      stage_kernel<MODE, CPT, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   a.ty = ty;
   a.tiles = (a.ny + ty - 1) / ty;
-  const size_t bytes = (size_t)layout(MODE, ty, a.nx, CPT * THREADS).total * sizeof(float);
-  stage_kernel<MODE, CPT><<<(unsigned)a.tiles * (unsigned)a.nt, THREADS, bytes, s>>>(a, clip);
+  const size_t blocks = (size_t)a.tiles * a.xtiles * a.nt;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t bytes =
+      (size_t)layout(MODE, ty, a.nx, CPT * THREADS, XT, a.tx, a.pitch).total * sizeof(float);
+  stage_kernel<MODE, CPT, XT><<<(unsigned)blocks, THREADS, bytes, s>>>(a, clip);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Four slots a thread where a tile of two rows fits that way, else eight.
+// Four slots a thread where a tile of two rows spans the row that way, else
+// eight; a row that no tile spans takes x tiles of four slots a thread.
 template <int MODE>
-int launch_mode(const Args& a, int clip, cudaStream_t s) {
-  const int err = launch<MODE, 4>(a, clip, s);
-  return err == -1 ? launch<MODE, 8>(a, clip, s) : err;
+int launch_mode(Args a, int clip, cudaStream_t s) {
+  int ty = tile_rows<MODE, 4>(a, false, nullptr);
+  if (ty > 0) return launch<MODE, 4, false>(a, ty, clip, s);
+  ty = tile_rows<MODE, 8>(a, false, nullptr);
+  if (ty > 0) return launch<MODE, 8, false>(a, ty, clip, s);
+  int tx = 0;
+  ty = tile_rows<MODE, 4>(a, true, &tx);
+  if (ty == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  a.xtiles = (a.nx + tx - 1) / tx;
+  a.tx = (a.nx + a.xtiles - 1) / a.xtiles;          // tiles of even width over nx
+  const int px = a.nx + 2 * PAD;
+  a.pitch = a.tx + 2 * PAD + ((px - a.tx - 2 * PAD) & 3);   // = px modulo 4
+  for (a.ulog = 0; (1 << a.ulog) < ((a.tx + 2 * PAD) >> 2) + 6; ++a.ulog) {
+  }
+  return launch<MODE, 4, true>(a, ty, clip, s);
 }
 
 }  // namespace
 
 // Launches on `stream` (one grid without the limiter, two with it) and
-// returns the first cudaGetLastError() that is not 0, or -1 when the x row
-// is too wide for the shared memory of a block.  `pt` may be null; `r_hi`
-// is (nt, nz, ny, nx) scratch, unused (may be null) without the limiter.
+// returns the first cudaGetLastError() that is not 0.  `pt` may be null;
+// `r_hi` is (nt, nz, ny, nx) scratch, unused (may be null) without the
+// limiter.
 extern "C" int advect_tracers(const float* q, const float* phi, const float* pt,
                               const float* ru, const float* rv, const float* ww,
                               const float* mu_full, const float* mu_new,
@@ -542,9 +657,16 @@ extern "C" int advect_tracers(const float* q, const float* phi, const float* pt,
                               float dts, int pd, int clip, int bcx, int bcy,
                               void* stream) {
   const Args a{q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, r_hi, out,
-               nt, nz, ny, nx, bcx, bcy, 0, 0, rdx, rdy, dts};
+               nt, nz, ny, nx, bcx, bcy, 0, 0, 0, 1, 0, 0, rdx, rdy, dts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!pd) return launch_mode<PLAIN>(a, clip, s);
   const int err = launch_mode<FACTOR>(a, clip, s);
   return err != 0 ? err : launch_mode<LIMITED>(a, clip, s);
+}
+
+// The widest x row (cells) that every grid of a call spans with one tile
+// at ny rows; a wider row is split into x tiles.
+extern "C" int advect_tracers_widest_row(int pd, int ny) {
+  return pd ? min(widest_row_of<FACTOR>(ny), widest_row_of<LIMITED>(ny))
+            : widest_row_of<PLAIN>(ny);
 }

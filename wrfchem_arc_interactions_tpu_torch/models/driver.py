@@ -7,15 +7,18 @@ cadence.  The reference compiles three executables — "main" every step,
 steppers in the same alarm order within a step: chem, then rad, then main.
 Model time reaches the solar ephemeris (of the rad and of the chem stepper,
 whose photolysis rates follow the sun) and the McICA seed as float32, as
-the reference's ``t_now = jnp.float32(time_s)`` does.  History, restart,
-tslist and nesting come with later slices.
+the reference's ``t_now = jnp.float32(time_s)`` does.  Constant emissions
+(a dict of (ny, nx) fluxes) feed every chem call, as the reference's
+``"chem"`` stepper passes them.  History, restart, tslist, the hourly
+emission stream and nesting come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from wrfchem_arc_interactions_tpu_torch.chem.driver import chem_driver
 from wrfchem_arc_interactions_tpu_torch.config import Config
@@ -27,21 +30,29 @@ from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import radiatio
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils.clock import ModelClock
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
-from wrfchem_arc_interactions_tpu_torch.utils.support import check_config, check_grid
+from wrfchem_arc_interactions_tpu_torch.utils.support import SLICE_RUN, check_config, check_grid
 
 
 class Simulation:
     def __init__(self, cfg: Config, grid: Grid, state: State,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 emissions: Optional[Mapping[str, torch.Tensor]] = None):
         """Run `cfg` from (grid, state) on `device` (default ``cuda``; raises
-        if there is none and the CPU was not asked for).  The grid and state
-        are moved there."""
+        if there is none and the CPU was not asked for).  The grid, the state
+        and the `emissions` ({species or ``elev_`` species: (ny, nx) flux,
+        ``heat_mw``: (ny, nx)}, used under ``emiss_opt``) are moved there."""
         check_config(cfg)
         check_grid(grid)
+        if emissions is not None and not isinstance(emissions, Mapping):
+            raise NotImplementedError(
+                f"an emission stream ({type(emissions).__name__}) is not ported yet; "
+                f"it comes with {SLICE_RUN}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.grid = grid.to(self.device)
         self.state = {k: v.to(self.device) for k, v in state.items()}
+        self.emissions = (None if emissions is None
+                          else {k: v.to(self.device) for k, v in emissions.items()})
         self.dt = cfg.time_control.dt
         self.time_s = 0.0
         self.step_idx = 0
@@ -80,10 +91,12 @@ class Simulation:
                     ts, jd = self._solar_time(t_s)
                     return radiation_driver(s, g, cfg, ts, julian_day=jd)
             elif key == "chem":
+                emissions = self.emissions
+
                 def fn(s, g, t_s):
                     ts, jd = self._solar_time(t_s)
                     return chem_driver(s, g, cfg, cfg.chem.chemdt_s, time_s=ts,
-                                       julian_day=jd)
+                                       emissions=emissions, julian_day=jd)
             else:
                 raise ValueError(key)
             self._steppers[key] = fn

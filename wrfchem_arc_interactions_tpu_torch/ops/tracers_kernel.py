@@ -14,7 +14,8 @@ limiter must see phi_old without it.
 The kernel (``csrc/advect_tracers.cu``) is bound by memory on paper (~0.39 GB
 per call at nt = 47 and 100x100x50, 0.12 ms at 3.35 TB/s); what costs time
 on the card is the instructions around the arithmetic.  So a block owns a
-tile of rows over the whole x row of one tracer and marches in z: planes of
+tile of rows over the x row (or an x tile of it) of one tracer and marches
+in z: planes of
 q, ru, rv (and r_hi) come by asynchronous copy into rings in shared memory,
 each thread owns a few fixed slots of the tile, and each face flux is
 computed once.  The limiter takes two grids (`GRIDS_LIMITED`): both form the
@@ -23,8 +24,11 @@ r_hi, the second reads it and writes the update.  Without the limiter one
 grid (`GRIDS_PLAIN`) does it all.  The source's header states the design in
 full.
 
-A tile spans the x row, so the row's width is limited by a block's shared
-memory (about 450 cells at 2 rows per tile); a wider row raises.
+A row wider than one tile can hold at two rows (`widest_row`: 469 cells
+with the limiter, 511 without) is split into x tiles, each with the 3-cell
+x halo in its planes and one more column of factors on each side; at or
+below that width the grid is the one-tile grid.  Rows of any width run,
+bitwise as at one tile.
 
 `advect_tracers` launches the kernel for CUDA tensors and runs
 `advect_tracers_reference` for CPU tensors; it never falls back from one to
@@ -47,7 +51,6 @@ from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 
 GRIDS_PLAIN = 1          # grids of one call without the limiter
 GRIDS_LIMITED = 2        # ... with it: the r_hi grid and the update grid
-_ROW_TOO_WIDE = -1       # the C function's code for an x row no tile can hold
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _BC_CODE = {BCKind.PERIODIC: 0, BCKind.OPEN: 1, BCKind.SYMMETRIC: 2}
@@ -146,8 +149,6 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
                  nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
                  float(dts), int(pd), int(clip), _BC_CODE[hx.bc_x], _BC_CODE[hx.bc_y],
                  stream)
-    if err == _ROW_TOO_WIDE:
-        raise ValueError(f"nx = {nx} is too wide for a tile in shared memory")
     if err != 0:
         raise RuntimeError(f"advect_tracers launch failed: cudaError {err}")
     advect_tracers.launches += GRIDS_LIMITED if pd else GRIDS_PLAIN
@@ -155,3 +156,12 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
 
 
 advect_tracers.launches = 0
+
+
+def widest_row(pd: bool, ny: int = 2) -> int:
+    """The widest x row (cells) that every grid of a call spans with one
+    tile at `ny` rows (CUDA library); a wider row takes x tiles."""
+    fn = build.load("advect_tracers").advect_tracers_widest_row
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(int(pd), int(ny)))

@@ -6,11 +6,13 @@ pattern), and the aerosol optical properties from chem when
 ``aer_ra_feedback`` is on — the aerosol-radiation (ARC direct effect)
 coupling point.
 
-Columns are not chunked: every result is column-independent (the McICA
-seed is the same for every column), so the reference's column chunking
-only bounds its memory, and the port solves all columns in one call.
-`chip_smoke.py` prints the peak device memory of one call at config 3's
-100x100x50.
+The LW and SW solvers run over chunks of at most `COL_CHUNK` columns, as
+the reference's `_map_col_chunks` runs them, which bounds the live
+(ngpt, nz, chunk) temporaries.  Every result is column-independent (the
+McICA deviates hash only the g-point, the layer and the seed), so a chunked
+call equals an unchunked one bit for bit; the last chunk is the shorter
+one, where the reference pads it by edge replication.  `chip_smoke.py`
+prints the peak device memory of one call at 10,000 and at 100,000 columns.
 """
 
 from __future__ import annotations
@@ -30,6 +32,34 @@ from wrfchem_arc_interactions_tpu_torch.utils import constants as c
 
 ALBEDO = 0.2
 JULIAN_DAY = 172.0   # near-solstice default for ideal runs
+# Columns per solver call.  One call peaks at 8.89 GiB for 10,000 columns
+# at nz = 50 (NVIDIA H100 80GB HBM3, chip_smoke.py), ~0.95 MB a column, so
+# a chunk of 10,240 keeps a call near 9 GiB at any domain size while
+# config 3's and config 4's 100x100 domains stay one call, with the same
+# launches as unchunked: the step is bound by the host's launch rate, and
+# the reference's 2,048 would make their rad call five calls of launches.
+COL_CHUNK = 10240
+
+
+def _map_col_chunks(fn, ncol: int, *args, **kwargs):
+    """`fn(*args, **kwargs)` over chunks of at most `COL_CHUNK` columns: a
+    tensor argument whose last axis has `ncol` entries is sliced on it,
+    anything else is passed whole; the outputs (a dict of tensors whose
+    last axis is the column) are joined again."""
+    if ncol <= COL_CHUNK:
+        return fn(*args, **kwargs)
+
+    def part(a, lo, hi):
+        if isinstance(a, torch.Tensor) and a.dim() and a.shape[-1] == ncol:
+            return a[..., lo:hi].contiguous()
+        return a
+
+    outs = []
+    for lo in range(0, ncol, COL_CHUNK):
+        hi = min(lo + COL_CHUNK, ncol)
+        outs.append(fn(*(part(a, lo, hi) for a in args),
+                       **{k: part(v, lo, hi) for k, v in kwargs.items()}))
+    return {k: torch.cat([o[k] for o in outs], dim=-1) for k in outs[0]}
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
@@ -120,7 +150,7 @@ def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
             kw["tau_aer_lw"] = aer_lw
         if cf is not None:
             kw["cldfra"], kw["mcica_seed"] = cf, seed
-        lw = lw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, t_sfc, **kw)
+        lw = _map_col_chunks(lw_fluxes, ncol, p_lay, t_lay, dp_lay, qv, lwp, t_sfc, **kw)
         out["rthraten_lw"] = unflat(lw["heating"] / exner)
         out["glw"] = unflat(lw["glw"])
         out["olr"] = unflat(lw["olr"])
@@ -144,7 +174,8 @@ def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
             rvol = (3.0 * torch.clamp(qc_f, min=0.0)
                     / (4.0 * np.pi * 1000.0 * nc_f)) ** (1.0 / 3.0)
             kw["re_liq"] = torch.clamp(1.1 * rvol, 2.5e-6, 50.0e-6)
-        sw = sw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo, **kw)
+        sw = _map_col_chunks(sw_fluxes, ncol, p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo,
+                              **kw)
         out["rthraten_sw"] = unflat(sw["heating"] / exner)
         out["swdown"] = unflat(sw["swdown"])
         out["swupt"] = unflat(sw["swup_toa"])

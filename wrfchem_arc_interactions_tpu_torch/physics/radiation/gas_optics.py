@@ -80,6 +80,16 @@ def _interp_table(ktab: torch.Tensor, jp, wp, jt, wt) -> torch.Tensor:
             + wt * ((1 - wp) * k10 + wp * k11))
 
 
+def spectral_sum(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """Sum of `x` over its band or g-point axis `dim`, reduced as the
+    innermost axis.  A library sum over an outer axis orders its additions
+    by the width of the axes behind it, so a chunk of columns would round
+    apart from the whole; over the innermost axis each column's sum is the
+    same at any number of columns (`driver.COL_CHUNK`)."""
+    out = torch.movedim(x, dim, -1).contiguous().sum(dim=-1)
+    return out.unsqueeze(dim) if keepdim else out
+
+
 def table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A host float64 table as a tensor of `like`'s dtype and device."""
     return torch.as_tensor(np.asarray(a), dtype=like.dtype).to(like.device)

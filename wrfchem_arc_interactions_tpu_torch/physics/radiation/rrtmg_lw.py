@@ -39,7 +39,7 @@ def band_planck_fractions(t: torch.Tensor) -> torch.Tensor:
     dwn_ = gas_optics.table(dwn, t).reshape(shape)
     x = 1.4388 * wn_ / torch.clamp(t, min=100.0)[None]
     b = wn_ ** 3 / torch.expm1(x) * dwn_
-    return b / torch.sum(b, dim=0, keepdim=True)
+    return b / gas_optics.spectral_sum(b, 0, keepdim=True)
 
 
 def lw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, t_sfc,
@@ -100,8 +100,9 @@ def lw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, t_sfc,
         fu.append(carry)
 
     # face fluxes (faces k = 0..nz), summed over g-points
-    fd_tot = torch.sum(torch.stack(fd + [torch.zeros_like(fd_sfc)]), dim=1)  # (nz+1, ncol)
-    fu_tot = torch.sum(torch.stack(fu), dim=1)
+    fd_tot = gas_optics.spectral_sum(torch.stack(fd + [torch.zeros_like(fd_sfc)]),
+                                     1)                          # (nz+1, ncol)
+    fu_tot = gas_optics.spectral_sum(torch.stack(fu), 1)
 
     fnet = fu_tot - fd_tot
     # heating: layer k gains (Fnet[k] - Fnet[k+1]) over dp

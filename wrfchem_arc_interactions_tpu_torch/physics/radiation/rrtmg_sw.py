@@ -178,8 +178,8 @@ def sw_fluxes(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo,
     fd_f = torch.stack(fd_f)
     fu_f = rb_dif_faces * fd_f + rb_dir_faces * s_f
 
-    fdn_tot = torch.sum(s_f + fd_f, dim=1)                 # (nz+1, ncol)
-    fup_tot = torch.sum(fu_f, dim=1)
+    fdn_tot = gas_optics.spectral_sum(s_f + fd_f, 1)        # (nz+1, ncol)
+    fup_tot = gas_optics.spectral_sum(fu_f, 1)
     fnet = fdn_tot - fup_tot                               # net DOWNWARD
     hr = (fnet[1:] - fnet[:-1]) * c.G / (c.CP * dp_lay)
     night = (mu0 <= 0.0)[None]

@@ -4,12 +4,12 @@ JAX package's `registry/fields.py`).
 Ported: the dynamical core state, the moist scalars (Kessler's three or
 Morrison's twelve), the surface fields every configuration carries, the
 radiation fields (held heating rates, surface and TOA fluxes, cloud
-fraction), the chem tracers of the MOSAIC 4-bin packages (with the CBM-Z
-gases for ``cbmz_mosaic_4bin``) and the aerosol optical arrays.  The
-cloud-borne phase, the 8-bin packages and the PBL, land-surface, cumulus,
-TKE and stochastic-physics entries come with their slices; a configuration
-that needs them is refused by `utils.support.check_config` before any
-table is built.
+fraction), the chem tracers of the MOSAIC 4- and 8-bin packages (with the
+cloud-borne phase under ``cldchem_onoff`` and the CBM-Z gases for the
+``cbmz_`` packages) and the aerosol optical arrays.  The PBL,
+land-surface, cumulus, TKE and stochastic-physics entries come with their
+slices; a configuration that needs them is refused by
+`utils.support.check_config` before any table is built.
 
 Layout: 3D fields are (z, y, x); "zs" is the staggered vertical axis of
 length nz+1 (w levels); `extra` adds leading axes (the band axis of the
@@ -92,10 +92,10 @@ def _moist_fields(cfg: Config) -> Tuple[FieldSpec, ...]:
 def chem_species(chem: ChemConfig) -> Tuple[str, ...]:
     """Advected chemistry tracer names of the active package: per size bin,
     the masses of so4/no3/nh4/cl/na/oin/bc/oc, aerosol water and number;
-    then the CBM-Z gas species (`chem.gas`) for a gas package, or the four
-    condensable precursor gases for an aerosol-only one.  The cloud-borne
-    (_cw) phase is not ported yet (`utils.support.check_config` refuses
-    ``cldchem_onoff``)."""
+    with ``cldchem_onoff`` the cloud-borne (_cw) phase, per bin the eight
+    masses and number inside cloud droplets; then the CBM-Z gas species
+    (`chem.gas`) for a gas package, or the four condensable precursor gases
+    for an aerosol-only one."""
     if chem.chem_opt == ChemOpt.NONE:
         return ()
     nbin = 8 if "8bin" in chem.chem_opt.value else 4
@@ -105,6 +105,11 @@ def chem_species(chem: ChemConfig) -> Tuple[str, ...]:
             names.append(f"{s}_a{b:02d}")
         names.append(f"water_a{b:02d}")
         names.append(f"num_a{b:02d}")
+    if chem.cldchem_onoff:
+        for b in range(1, nbin + 1):
+            for s in AER_SPECIES:
+                names.append(f"{s}_cw{b:02d}")
+            names.append(f"num_cw{b:02d}")
     if chem.chem_opt in (ChemOpt.CBMZ_MOSAIC_4BIN, ChemOpt.CBMZ_MOSAIC_8BIN):
         names.extend(GAS_SPECIES)
     else:

@@ -31,6 +31,8 @@ def advected_names(cfg: Config) -> Tuple[str, ...]:
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike) -> State:
     """Carry a state given as numpy arrays (for example the JAX package's
-    state through ``np.asarray``) onto `device`, keeping each dtype."""
+    state through ``np.asarray``) onto `device`, keeping each dtype.  An
+    emissions dict ({species or ``elev_`` species: (ny, nx) flux,
+    ``heat_mw``}) carries over the same way."""
     return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
             for k, v in arrays.items()}
