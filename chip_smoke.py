@@ -51,7 +51,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    3.2e-4 of its plain version);
 9. config-4 cross-check: 3 steps of a small config 4 from noon UTC (both
    alarms every step) on the card against the CPU;
-10. slice-6 phase, this slice's main path: bench.py's --config4-8bin
+10. slice-6 phase: bench.py's --config4-8bin
    (config 4 with cbmz_mosaic_8bin) with emissions (seeded surface fluxes
    and fire sources lifted by plume rise), the cloud-borne phase with
    aqueous chemistry and wet scavenging: 219 advected scalars, 2 warm-up
@@ -63,7 +63,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    Mie kernel on the 8 bins' own inputs;
 11. slice-6 cross-check: 3 steps at 16x8x20 from noon on the card against
    the CPU;
-12. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
+12. slice-7 phase, this slice's main path: config 4 with WRF-Chem's usual
+   transport and boundary layer (`_cfg7`: moist and chem scalars under the
+   monotonic limiter, the 6th-order filter, 2D Smagorinsky with kvdif = 0,
+   YSU over the revised MM5 surface layer and the Noah land surface): 2
+   warm-up steps, one 100-step window with exact launches (300 / 200 / 40 /
+   10: the final stage's monotonic update is a plain batched pass, not the
+   multi-tracer kernel), finite fields, no negative chem or moist field,
+   the PBL height inside the domain and the soil state in its bounds; the
+   synchronised phase times, a profile of one main step, and the scalar
+   advection and multi-tracer kernels bitwise on one main step's calls;
+13. slice-7 cross-checks, card against CPU, 3 steps each from noon: the
+   slice-7 configuration at 16x8x20; the LES case with the TKE closure and
+   WENO5; SPPT and SKEBS; MYNN over the slab surface; BMJ, KF and Grell with
+   WSM6 at dx = 10 km; the simple radiation;
+14. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
    of the multi-tracer kernel): that kernel timed at 47 scalars on the
    grid, 3 steps with one rad and one chem call and exact launches, and
    the rad call's peak memory.
@@ -188,6 +202,57 @@ def _cfg6(nx=100, ny=100, nz=50, chem_s=60.0, rad_s=600.0,
     return cfg.replace(chem=dataclasses.replace(
         cfg.chem, chem_opt=ChemOpt.CBMZ_MOSAIC_8BIN, emiss_opt=True, cldchem_onoff=True,
         wetscav_onoff=True))
+
+
+def _cfg7(nx=100, ny=100, nz=50, chem_s=60.0, rad_s=600.0,
+          start_date="2000-06-20_00:00:00"):
+    """Slice 7's path: config 4 (`_cfg4`) with WRF-Chem's usual transport and
+    boundary layer: the monotonic limiter for moist and chem scalars, the
+    6th-order filter (diff_6th_opt = 2, factor 0.12), 2D Smagorinsky with
+    kvdif = 0 (the PBL mixes in the vertical), YSU over the revised MM5
+    surface layer and the Noah land surface."""
+    import dataclasses
+    from wrfchem_arc_interactions_tpu_torch.config.namelist import (
+        AdvLimiter, KMOpt, PBLScheme, SFScheme, SFSurface,
+    )
+    cfg = _cfg4(nx, ny, nz, chem_s, rad_s, start_date)
+    return cfg.replace(
+        dynamics=dataclasses.replace(
+            cfg.dynamics, moist_adv_opt=AdvLimiter.MONOTONIC,
+            chem_adv_opt=AdvLimiter.MONOTONIC, diff_6th_opt=2, diff_6th_factor=0.12,
+            km_opt=KMOpt.SMAGORINSKY_2D, kvdif=0.0),
+        physics=dataclasses.replace(
+            cfg.physics, bl_pbl_physics=PBLScheme.YSU,
+            sf_sfclay_physics=SFScheme.REVISED_MM5, sf_surface_physics=SFSurface.NOAH))
+
+
+def _cfg_small(nx, ny, nz, dx, dt, ztop, p_top, dynamics=None, physics=None):
+    """A small configuration of the options the cross-checks hold; enum
+    values given by name."""
+    import dataclasses
+    from wrfchem_arc_interactions_tpu_torch.config import (
+        Config, DomainConfig, DynamicsConfig, PhysicsConfig, TimeControl,
+    )
+
+    def fill(obj, values):
+        return dataclasses.replace(obj, **{k: type(getattr(obj, k))(v)
+                                          for k, v in (values or {}).items()})
+
+    return Config(domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, ztop=ztop,
+                                      p_top=p_top),
+                  time_control=TimeControl(dt=dt, start_date="2000-06-20_12:00:00"),
+                  dynamics=fill(DynamicsConfig(), dynamics),
+                  physics=fill(PhysicsConfig(), physics))
+
+
+def _les_state(state):
+    """The LES cross-check's start: TKE of 0.1 m2/s2 and a mean wind with
+    seeded eddies, which WENO5 needs to set its weights above rounding."""
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    state["tke"] = torch.full_like(state["tke"], 0.1)
+    for k, mean in (("u", 2.0), ("v", 1.0)):
+        state[k] = mean + 0.5 * torch.randn(state[k].shape, generator=gen)
+    return state
 
 
 # surface fluxes of a regional air-quality run: gases [ppmv/s * m], aerosol
@@ -1295,6 +1360,149 @@ def slice6_phase(dev, card, steps=RAD_CHEM_EVERY):
     return launches, numbers
 
 
+def slice7_phase(dev, card, steps=RAD_CHEM_EVERY):
+    """Slice 7's path through `Simulation`: config 4 with WRF-Chem's usual
+    transport and boundary layer (`_cfg7`); one 100-step window with 10 chem
+    and 1 rad call, the exact launches of all four kernels (the final
+    stage's monotonic update is a plain batched pass, so the multi-tracer
+    kernel runs 2 grids a step), the physical checks (finite fields, no
+    negative chem or moist field, the PBL height inside the domain, the
+    soil state in its bounds), the synchronised phase times, a profile of
+    one main step, and the scalar advection and the multi-tracer kernel
+    bitwise on one main step's own calls.  Returns (launches, numbers)."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
+    from wrfchem_arc_interactions_tpu_torch.physics import lsm
+    from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
+    cfg = _cfg7()
+    t0 = time.perf_counter()
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    state = _seed4(state)
+    sim = Simulation(cfg, grid, state, device=dev)
+    nt = len(advected_names(cfg))
+    print(f"case squall2d_x 100x100x50 (slice 7: config 4 with moist and chem "
+          f"mono, diff_6th_opt 2, smag2d, kvdif 0, YSU + revised MM5 + Noah; {len(state)} "
+          f"fields, {nt} advected scalars) built in {time.perf_counter() - t0:.2f} s")
+    if not (nt == 107 and sim.rad_every == steps and sim.chem_every == 10):
+        raise RuntimeError(f"slice 7: {nt} scalars, rad every {sim.rad_every}, chem every "
+                           f"{sim.chem_every}; expected 107, {steps}, 10")
+    sim.advance(2)                  # warm-up: both alarms ring at step 0
+    sim.sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.advance(steps)              # steps 2..101: chem at 10, 20, .., 100; rad at 100
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    s = sim.state
+    for k, v in s.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"slice 7: non-finite {k} after {steps + 2} steps")
+    neg = [k for k in list(cfg.moist_species()) + [k for k in s if k.startswith("chem_")]
+           if float(s[k].min()) < 0.0]
+    if neg:
+        raise RuntimeError(f"slice 7: negative fields {neg}")
+    ztop = float(sim.grid.phb[-1].max()) / 9.81
+    pblh = (float(s["pblh"].min()), float(s["pblh"].max()))
+    if not (0.0 < pblh[0] and pblh[1] < ztop):
+        raise RuntimeError(f"slice 7: pblh {pblh} outside (0, {ztop:.0f}) m")
+    tslb = (float(s["tslb"].min()), float(s["tslb"].max()))
+    smois = (float(s["smois"].min()), float(s["smois"].max()))
+    # Noah clips soil moisture to [0.02, porosity]; soil temperature stays
+    # near the skin's starting 297 K over 10 minutes
+    if not (0.02 <= smois[0] and smois[1] <= lsm.SM_SAT and 250.0 < tslb[0]
+            and tslb[1] < 330.0):
+        raise RuntimeError(f"slice 7: soil state out of bounds: tslb {tslb} K, smois {smois}")
+    n_chem = steps // sim.chem_every
+    # theta: the single-scalar kernel on 3 stages; the 107 scalars: the
+    # multi-tracer kernel without the limiter on stages 0 and 1 (the final
+    # stage's monotonic update is the plain batched pass); each chem call
+    # launches the Mie kernel once per bin and the ROS2 kernel once
+    want = {"advect_scalar_5_3": 3 * steps,
+            "advect_tracers": 2 * tracers_kernel.GRIDS_PLAIN * steps,
+            "mie_cheb_eval": 4 * n_chem, "ros2_integrate": n_chem}
+    if launches != want:
+        raise RuntimeError(f"slice 7: kernel launches in the {steps}-step window "
+                           f"{launches}, expected {want}")
+    d = cfg.domain
+    ms_step = wall / steps * 1e3
+    print(f"slice 7: {steps} steps of {d.nx}x{d.ny}x{d.nz} after 2 warm-up steps, {n_chem} "
+          f"chem calls and one rad call in the window: {ms_step:.3f} ms/step, "
+          f"{d.nx * d.ny * d.nz / (wall / steps) / 1e6:.4f} M gridpoints/s [{card}]; max w "
+          f"{float(s['w'].max()):.3f} m/s, max qc {float(s['qc'].max()):.3e}, pblh "
+          f"{pblh[0]:.1f}-{pblh[1]:.1f} m, hfx {float(s['hfx'].min()):.2f}-"
+          f"{float(s['hfx'].max()):.2f} W m-2, tsk {float(s['tsk'].min()):.2f}-"
+          f"{float(s['tsk'].max()):.2f} K, tslb {tslb[0]:.3f}-{tslb[1]:.3f} K, smois "
+          f"{smois[0]:.4f}-{smois[1]:.4f}, O3 {float(s['chem_o3'].min()):.5f}-"
+          f"{float(s['chem_o3'].max()):.5f} ppmv; kernel launches {launches}")
+
+    t_now = np.float32(sim.time_s)
+    main, rad, chem = (sim._stepper(k) for k in ("main", "rad", "chem"))
+    main_ms = _timed_ms(lambda: main(sim.state, sim.grid, t_now), 5)
+    rad_ms = _timed_ms(lambda: rad(sim.state, sim.grid, t_now), 2)
+    chem_ms = _timed_ms(lambda: chem(sim.state, sim.grid, t_now), 3)
+    print(f"phases (slice 7), synchronised: main step {main_ms:.3f} ms, rad call "
+          f"{rad_ms:.3f} ms, chem call {chem_ms:.3f} ms; per step of the window: main + "
+          f"chem/{sim.chem_every} + rad/{steps} = "
+          f"{main_ms + chem_ms / sim.chem_every + rad_ms / steps:.3f} ms")
+    dev_c, n_c, _ = _profile(lambda: chem(sim.state, sim.grid, t_now))
+    sim.sync()
+    dev_ms, n_kernels, rows = _profile(lambda: sim.advance(1))     # main only
+    print(f"profile of one slice-7 main step: device busy {dev_ms:.3f} ms in {n_kernels} "
+          f"launches; one chem call {dev_c:.3f} ms in {n_c}; against the unprofiled "
+          f"{ms_step:.3f} ms/step the device is busy "
+          f"{100.0 * (dev_ms + dev_c / sim.chem_every) / ms_step:.1f}% (main step + a tenth "
+          f"of a chem call); advect_tracers grids: {_tracer_grids_us(rows)}")
+    for t_us, count, key in rows[:8]:
+        print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    dycore_on_path(lambda: sim.advance(1), "slice 7")
+    numbers = {"ms_step": ms_step, "main_ms": main_ms, "chem_ms": chem_ms, "rad_ms": rad_ms,
+               "main_device_ms": dev_ms, "main_launches": n_kernels,
+               "chem_device_ms": dev_c, "chem_launches": n_c,
+               "device_busy_pct": 100.0 * (dev_ms + dev_c / sim.chem_every) / ms_step}
+    return launches, numbers
+
+
+def item7_cross_checks(dev):
+    """Card against CPU, 3 steps each from noon, for the options of slice 7
+    that its window does not run: the LES case with the TKE closure, the
+    surface heat flux and WENO5 momentum and scalars (stacked); SPPT and
+    SKEBS; MYNN over the slab surface with RRTMG; BMJ, KF and Grell with WSM6
+    at dx = 10 km; and the simple radiation."""
+    sq = dict(ztop=17000.0, p_top=8000.0)
+    rr = dict(ra_sw_physics="rrtmg", ra_lw_physics="rrtmg", radt_s=6.0)
+    weno = 7
+    cross_check(dev, _cfg_small(16, 16, 16, 100.0, 0.5, 2000.0, 80000.0,
+                                dynamics=dict(km_opt="tke", h_mom_adv_order=weno,
+                                              v_mom_adv_order=weno, h_sca_adv_order=weno,
+                                              v_sca_adv_order=weno, scan_tracer_min=2),
+                                physics=dict(sf_sfclay_physics="revised_mm5",
+                                             tke_heat_flux=0.2)),
+                _les_state, "LES with TKE and WENO5", case="les", full_theta_ulp=True)
+    s = cross_check(dev, _cfg_small(16, 8, 12, 1000.0, 6.0, **sq,
+                                    dynamics=dict(kvdif=30.0, sppt_amp=0.5, skebs_amp=0.5)),
+                    lambda st: st, "SPPT and SKEBS")
+    if not float(s["sppt_pattern"].abs().max()) > 0.0:
+        raise RuntimeError("SPPT and SKEBS: the pattern stayed zero")
+    s = cross_check(dev, _cfg_small(16, 8, 20, 1000.0, 6.0, **sq, dynamics=dict(kvdif=0.0),
+                                    physics=dict(bl_pbl_physics="mynn",
+                                                 sf_sfclay_physics="revised_mm5", **rr)),
+                    lambda st: st, "MYNN over the slab surface")
+    if not float(s["qke"].max()) > 1e-4:
+        raise RuntimeError("MYNN: no QKE produced")
+    for cu in ("bmj", "kf", "grell"):
+        s = cross_check(dev, _cfg_small(24, 4, 20, 10000.0, 30.0, 16000.0, 10000.0,
+                                        dynamics=dict(kvdif=30.0),
+                                        physics=dict(mp_physics="wsm6", cu_physics=cu)),
+                        lambda st: st, f"{cu.upper()} with WSM6 at dx = 10 km")
+        print(f"  {cu}: rainc max {float(s['rainc'].max()):.4g} mm after 3 steps")
+    cross_check(dev, _cfg_small(16, 8, 20, 1000.0, 6.0, **sq, dynamics=dict(kvdif=30.0),
+                                physics=dict(ra_sw_physics="simple", ra_lw_physics="simple",
+                                             radt_s=6.0)),
+                lambda st: st, "the simple radiation")
+
+
 def wide_phase(dev, card, steps=3):
     """Config 3 at 1000x100x50 (100,000 columns; x rows wider than one tile
     of the multi-tracer kernel): that kernel at config 3's 47 scalars on
@@ -1441,24 +1649,30 @@ def profile_phase(sim, dev, ms_step):
           f"of the step's wall time")
 
 
-def cross_check(dev, cfg, seed, label, emissions=None):
-    """3 steps of a small configuration starting at noon UTC, radiation and
-    chem every step, on the card against the CPU.  The limit per field is
-    1e-4 of its magnitude, or three times the CPU run's own float32 noise
-    (the CPU run again from theta changed by one ulp) where that is larger —
-    as the CPU tests hold the port to the reference."""
+def cross_check(dev, cfg, seed, label, emissions=None, case="squall2d_x",
+                full_theta_ulp=False, **case_kw):
+    """3 steps of a small configuration starting at noon UTC (radiation and
+    chem, where it has them, every step) on the card against the CPU.  The
+    limit per field is 1e-4 of its magnitude, or three times the CPU run's
+    own float32 noise (the CPU run again from theta changed by one ulp: of
+    the perturbation t, or with `full_theta_ulp` of t + 300 K for a case
+    whose t is zero) where that is larger — as the CPU tests hold the port
+    to the reference.  Returns the card's final state."""
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
-    grid, state = ideal.make_case(cfg, "squall2d_x", device="cpu", bubble_amp=3.0)
+    case_kw = case_kw or ({"bubble_amp": 3.0} if case == "squall2d_x" else {})
+    grid, state = ideal.make_case(cfg, case, device="cpu", **case_kw)
     state = seed(state)
-    ulp = dict(state, t=state["t"] * (1.0 + 2.0 ** -23))
+    t = state["t"]
+    ulp = dict(state, t=((t + 300.0) * (1.0 + 2.0 ** -23) - 300.0 if full_theta_ulp
+                         else t * (1.0 + 2.0 ** -23)))
     runs = {}
     for key, s0, where in (("gpu", state, dev), ("cpu", state, "cpu"), ("ulp", ulp, "cpu")):
         sim = Simulation(cfg, grid, s0, device=where,
                          emissions=None if emissions is None else emissions(grid))
         sim.advance(3)
         runs[key] = {k: v.double().cpu() for k, v in sim.state.items()}
-    if not float(runs["gpu"]["swdown"].max()) > 100.0:
+    if "swdown" in runs["gpu"] and not float(runs["gpu"]["swdown"].max()) > 100.0:
         raise RuntimeError(f"cross-check ({label}): no sunlight at noon")
     phb = float(grid.phb.abs().max())
     worst = []
@@ -1475,6 +1689,7 @@ def cross_check(dev, cfg, seed, label, emissions=None):
     print(f"cross-check 3 steps of {label} at {d.nx}x{d.ny}x{d.nz} from noon, card vs CPU, worst "
           "fields: " + ", ".join(f"{k} {e:.3g} (CPU one-ulp noise {n:.3g})"
                                   for e, k, n in worst[:4]))
+    return runs["gpu"]
 
 
 def main(argv=None) -> int:
@@ -1549,6 +1764,12 @@ def main(argv=None) -> int:
     cross_check(dev, _cfg6(nx=16, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
                            start_date="2000-06-20_12:00:00"), _seed4, "slice 6", _emissions6)
     torch.cuda.empty_cache()
+    launches7, numbers7 = slice7_phase(dev, card, args.steps)
+    torch.cuda.empty_cache()
+    cross_check(dev, _cfg7(nx=16, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
+                           start_date="2000-06-20_12:00:00"), _seed4, "slice 7")
+    item7_cross_checks(dev)
+    torch.cuda.empty_cache()
     modes_wide, launches_wide, mie_wide = wide_phase(dev, card)
     entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
     entries["advect_tracers"]["max_abs_err"] = max(
@@ -1561,18 +1782,19 @@ def main(argv=None) -> int:
           for b in entries["mie_cheb_eval"][path].values()))
     for name, by_path in ON_PATH.items():
         entries[name]["bitwise_on_path_calls"] = by_path
-    # "launches" is the count of this slice's main path, the slice-6 window,
+    # "launches" is the count of this slice's main path, the slice-7 window,
     # which runs all four kernels; the earlier paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches6[name]
-        entry["launches_by_path"] = {"slice6_window": launches6[name],
+        entry["launches"] = launches7[name]
+        entry["launches_by_path"] = {"slice7_window": launches7[name],
+                                     "slice6_window": launches6[name],
                                      "config4_window": launches4[name],
                                      "config3_window": launches3[name],
                                      "slice1_10_steps": launches1[name],
                                      "config3_1000x100_3_steps": launches_wide[name]}
-        if launches6[name] < 1:
-            raise RuntimeError(f"{name} was not launched on slice 6's path")
-    print(json.dumps({"slice6": numbers6}))
+        if launches7[name] < 1:
+            raise RuntimeError(f"{name} was not launched on slice 7's path")
+    print(json.dumps({"slice6": numbers6, "slice7": numbers7}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

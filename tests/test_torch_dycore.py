@@ -200,7 +200,7 @@ def test_diffusion_tendencies(case):
     jc, tc, jg, js, tg, ts = case
     names = jc.moist_species()
     ref = jdiff.diffusion_tendencies(js, jg, jc, JHalo(), jc.time_control.dt, names)
-    out = tdiff.diffusion_tendencies(ts, tg, tc, THalo(), names)
+    out = tdiff.diffusion_tendencies(ts, tg, tc, THalo(), tc.time_control.dt, names)
     assert set(ref) == set(out)
     for k in ref:
         assert _rel(ref[k], out[k]) <= 1e-5, k

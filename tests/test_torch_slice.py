@@ -241,20 +241,23 @@ print("OK")
     assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
 
 
-@pytest.mark.parametrize("change", [
-    {"dynamics": (("h_sca_adv_order", 7),)},
-    {"dynamics": (("diff_6th_opt", 1),)},
-    {"dynamics": (("km_opt", "tke"),)},
-    {"fdda": (("grid_fdda", True),)},
-    {"physics": (("bl_pbl_physics", "ysu"),)},
-    {"dynamics": (("moist_adv_opt", "mono"),)},
+@pytest.mark.parametrize("change,case,item", [
+    ({"dynamics": (("bc_x", "specified"),)}, "squall2d_x", "item 9"),
+    ({"dynamics": (("fft_filter_lat", 45.0),)}, "squall2d_x", "item 9"),
+    ({"fdda": (("grid_fdda", True),)}, "squall2d_x", "item 9"),
+    ({"parallel": (("mesh_x", 2),)}, "squall2d_x", "item 10"),
+    ({"time_control": (("ts_points", (("p1", 1, 1),)),)}, "squall2d_x", "item 8"),
+    ({}, "hill2d_x", "item 9"),
 ])
-def test_unported_options_raise(change):
-    (group, fields), = change.items()
+def test_unported_options_raise(change, case, item):
+    """What the port does not carry yet raises, naming the ROADMAP item that
+    brings it (the options of item 7 run, and their own tests hold them to
+    the reference)."""
     _, tc = _cfgs(nx=8, ny=4, nz=6)
-    sub = getattr(tc, group)
-    sub = dataclasses.replace(sub, **{field: type(getattr(sub, field))(value)
-                                      for field, value in fields})
-    tc = tc.replace(**{group: sub})
-    with pytest.raises(NotImplementedError, match="slice"):
-        tideal.make_case(tc, "squall2d_x", device="cpu")
+    for group, fields in change.items():
+        sub = getattr(tc, group)
+        sub = dataclasses.replace(sub, **{field: type(getattr(sub, field))(value)
+                                          for field, value in fields})
+        tc = tc.replace(**{group: sub})
+    with pytest.raises(NotImplementedError, match=item):
+        tideal.make_case(tc, case, device="cpu")

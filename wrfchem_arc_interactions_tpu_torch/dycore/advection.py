@@ -1,6 +1,7 @@
-"""Finite-volume flux advection (2nd-6th order, upwind-biased odd orders)
-on the Arakawa-C grid and the positive-definite flux limiter (port of the
-JAX package's `dycore/advection.py`; canonical dyn_em/module_advect_em.F).
+"""Finite-volume flux advection (2nd-6th order, upwind-biased odd orders,
+and WENO5) on the Arakawa-C grid, the positive-definite flux limiter and the
+monotonic (FCT) limiter (port of the JAX package's `dycore/advection.py`;
+canonical dyn_em/module_advect_em.F).
 
 The arithmetic, including the order of every operation, is a transcription
 of the reference so that the two agree to float32 rounding.  Fields are
@@ -47,6 +48,35 @@ def flux5(vel, qm3, qm2, qm1, q0, qp1, qp2):
         10.0 * (q0 - qm1) - 5.0 * (qp1 - qm2) + (qp2 - qm3)) * (1.0 / 60.0)
 
 
+def _weno5_face(a, b, c, d, e):
+    """WENO5-JS face value from the five upwind-ordered cells a..e
+    (q_{f-3}..q_{f+1} for flow toward +).  The smoothness indicators are
+    normalised by their sum, so the weights do not depend on the field's
+    scale or offset, and the weights are normalised before the candidate
+    sum (w * p overflows float32 where every beta vanishes)."""
+    beta0 = (13.0 / 12.0) * (a - 2.0 * b + c) ** 2 + 0.25 * (a - 4.0 * b + 3.0 * c) ** 2
+    beta1 = (13.0 / 12.0) * (b - 2.0 * c + d) ** 2 + 0.25 * (b - d) ** 2
+    beta2 = (13.0 / 12.0) * (c - 2.0 * d + e) ** 2 + 0.25 * (3.0 * c - 4.0 * d + e) ** 2
+    scale = beta0 + beta1 + beta2 + 1e-30
+    eps = 1e-8
+    w0 = 0.1 / (eps + beta0 / scale) ** 2
+    w1 = 0.6 / (eps + beta1 / scale) ** 2
+    w2 = 0.3 / (eps + beta2 / scale) ** 2
+    wsum = w0 + w1 + w2
+    p0 = (2.0 * a - 7.0 * b + 11.0 * c) * (1.0 / 6.0)
+    p1 = (-b + 5.0 * c + 2.0 * d) * (1.0 / 6.0)
+    p2 = (2.0 * c + 5.0 * d - e) * (1.0 / 6.0)
+    return (w0 / wsum) * p0 + (w1 / wsum) * p1 + (w2 / wsum) * p2
+
+
+def flux_weno5(vel, qm3, qm2, qm1, q0, qp1, qp2):
+    """5th-order WENO flux: both upwind orientations, selected by the sign
+    of the face velocity."""
+    q_pos = _weno5_face(qm3, qm2, qm1, q0, qp1)
+    q_neg = _weno5_face(qp2, qp1, q0, qm1, qm2)
+    return vel * torch.where(vel > 0, q_pos, q_neg)
+
+
 def _hflux(vel, stencil, order: int):
     """Order-`order` flux of a 6-point stencil tuple (qm3..qp2)."""
     qm3, qm2, qm1, q0, qp1, qp2 = stencil
@@ -62,10 +92,8 @@ def _hflux(vel, stencil, order: int):
         return flux5(vel, qm3, qm2, qm1, q0, qp1, qp2)
     if order == 6:
         return flux6(vel, qm3, qm2, qm1, q0, qp1, qp2)
-    if order == 7:
-        raise NotImplementedError(
-            "WENO5 advection is not ported yet; it comes with a later slice "
-            "(ROADMAP Queue 1 item 7)")
+    if order == 7:   # AdvOrder.WENO5
+        return flux_weno5(vel, qm3, qm2, qm1, q0, qp1, qp2)
     raise ValueError(order)
 
 
@@ -284,3 +312,88 @@ def pd_limit(q_pad, phi_old, fx, fy, fz, ru_pad, rv_pad, ww,
     # eta increases downward: positive az at face k drains the upper cell k
     az_l = az * torch.where(az > 0, r_hi, r_lo)
     return lx + ax_l, ly + ay_l, lz + az_l
+
+
+# ---------------------------------------------------------------------------
+# Monotonic (FCT / Zalesak) limiter (canonical advect_scalar_mono)
+# ---------------------------------------------------------------------------
+
+def mono_limit(q_pad, phi_old, mu_new, fx, fy, fz, ru_pad, rv_pad, ww,
+               dt: float, grid: Grid, hx) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Zalesak flux-corrected transport: the new coupled scalar stays within
+    the min/max of the old field and of the low-order solution over each
+    cell's 7-point neighbourhood (no new extrema, and positive).  The bounds
+    are in coupled units Phi = mu q with the new column mass `mu_new`
+    (ny, nx).  Leading axes before (z, y, x) batch, so one call limits a
+    stack of scalars."""
+    q_int = win(q_pad, 0, 0)
+    lx = flux1(win(ru_pad, 0, 0, ex=1), win(q_pad, 0, -1, ex=1), win(q_pad, 0, 0, ex=1))
+    ly = flux1(win(rv_pad, 0, 0, ey=1), win(q_pad, -1, 0, ey=1), win(q_pad, 0, 0, ey=1))
+    lz = vflux(ww, q_int, 1)
+    lz[..., 0, :, :] = 0.0
+    lz[..., -1, :, :] = 0.0
+    # a low-order solution that is positive by construction
+    lx, ly, lz = limit_low_order(phi_old, lx, ly, lz, dt, grid, hx)
+    m2 = (grid.msft * grid.msft) if grid.has_msf else None
+    m2v = m2[None] if m2 is not None else 1.0
+    phi_td = phi_old + dt * flux_div(lx, ly, lz, grid, m_h=m2)
+
+    # local bounds from the 7-point neighbourhood of q (old) and q_td
+    q_td = phi_td / mu_new[None]
+    qtd_pad = hx.pad(q_td, 1)
+    nz = q_int.shape[-3]
+    neigh = [win(q_pad, 0, 1), win(q_pad, 0, -1), win(q_pad, 1, 0), win(q_pad, -1, 0),
+             win(qtd_pad, 0, 0, pad=1), win(qtd_pad, 0, 1, pad=1),
+             win(qtd_pad, 0, -1, pad=1), win(qtd_pad, 1, 0, pad=1),
+             win(qtd_pad, -1, 0, pad=1),
+             torch.cat([_zsl(q_int, 0, 1), _zsl(q_int, 0, nz - 1)], dim=-3),
+             torch.cat([_zsl(q_int, 1, nz), _zsl(q_int, nz - 1, nz)], dim=-3)]
+    q_max = q_int
+    q_min = q_int
+    for n_ in neigh:
+        q_max = torch.maximum(q_max, n_)
+        q_min = torch.minimum(q_min, n_)
+    phi_max = q_max * mu_new[None]
+    phi_min = torch.clamp(q_min, min=0.0) * mu_new[None]
+
+    ax, ay, az = fx - lx, fy - ly, fz - lz
+    rdnw = grid.rdnw.reshape(-1, 1, 1)
+    nzf = az.shape[-3]
+    # incoming / outgoing antidiffusive sums (in Phi units over dt)
+    in_x = torch.clamp(-ax[..., 1:], min=0.0) + torch.clamp(ax[..., :-1], min=0.0)
+    out_x = torch.clamp(ax[..., 1:], min=0.0) + torch.clamp(-ax[..., :-1], min=0.0)
+    in_y = torch.clamp(-ay[..., 1:, :], min=0.0) + torch.clamp(ay[..., :-1, :], min=0.0)
+    out_y = torch.clamp(ay[..., 1:, :], min=0.0) + torch.clamp(-ay[..., :-1, :], min=0.0)
+    up_c = -_zsl(az, 1, nzf) * rdnw
+    lo_c = _zsl(az, 0, nzf - 1) * rdnw
+    in_z = torch.clamp(up_c, min=0.0) + torch.clamp(lo_c, min=0.0)
+    p_in = dt * (m2v * (in_x * grid.rdx + in_y * grid.rdy) + in_z)
+    out_z = torch.clamp(-up_c, min=0.0) + torch.clamp(-lo_c, min=0.0)
+    p_out = dt * (m2v * (out_x * grid.rdx + out_y * grid.rdy) + out_z)
+    r_plus = torch.where(p_in > 0.0,
+                         torch.clamp((phi_max - phi_td) / torch.clamp(p_in, min=1e-30),
+                                     max=1.0), 1.0)
+    r_minus = torch.where(p_out > 0.0,
+                          torch.clamp((phi_td - phi_min) / torch.clamp(p_out, min=1e-30),
+                                      max=1.0), 1.0)
+    r_plus = torch.clamp(r_plus, 0.0, 1.0)
+    r_minus = torch.clamp(r_minus, 0.0, 1.0)
+    rp, rm = hx.pad(r_plus, 1), hx.pad(r_minus, 1)
+
+    def w1(a, dy, dx, ey=0, ex=0):
+        return win(a, dy, dx, ey=ey, ex=ex, pad=1)
+
+    # face factor = min(R- of the donor, R+ of the receiver)
+    ax_f = torch.where(ax > 0,
+                       torch.minimum(w1(rm, 0, -1, ex=1), w1(rp, 0, 0, ex=1)),
+                       torch.minimum(w1(rm, 0, 0, ex=1), w1(rp, 0, -1, ex=1)))
+    ay_f = torch.where(ay > 0,
+                       torch.minimum(w1(rm, -1, 0, ey=1), w1(rp, 0, 0, ey=1)),
+                       torch.minimum(w1(rm, 0, 0, ey=1), w1(rp, -1, 0, ey=1)))
+    rp_ze = _zpad(r_plus, 1)
+    rm_ze = _zpad(r_minus, 1)
+    rp_lo, rp_hi = _zsl(rp_ze, 0, nzf), _zsl(rp_ze, 1, nzf + 1)
+    rm_lo, rm_hi = _zsl(rm_ze, 0, nzf), _zsl(rm_ze, 1, nzf + 1)
+    # positive az at face k moves mass downward, draining the upper cell k
+    az_f = torch.where(az > 0, torch.minimum(rm_hi, rp_lo), torch.minimum(rm_lo, rp_hi))
+    return lx + ax * ax_f, ly + ay * ay_f, lz + az * az_f

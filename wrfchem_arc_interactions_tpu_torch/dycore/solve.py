@@ -14,14 +14,20 @@ unrolled per-tracer loop below ``scan_tracer_min`` scalars, and a
 ``lax.scan`` (or one stacked pass) over the stacked scalars at or above it.
 The port keeps the split.  Below it, the per-tracer loop; at or above it
 (config 3 advects 47 scalars on every stage), the scalars stay stacked as
-one (nt, nz, ny, nx) tensor for the whole step and each stage's update is
-one call of the fused multi-tracer kernel (`ops.tracers_kernel.
-advect_tracers`), the limiter and clip included on the final stage.
+one (nt, nz, ny, nx) tensor for the whole step.  With the orders (5, 3)
+each stage's update of the stack is one call of the fused multi-tracer
+kernel (`ops.tracers_kernel.advect_tracers`), the positive-definite
+limiter and clip included on the final stage.  The kernel has no monotonic
+limiter (the TPU kernel has none either), so under ``moist_adv_opt=mono``
+the final stage, and with other orders every stage, is one plain batched
+pass of this module's operators over the whole stack (`_plain_update`):
+the same arithmetic per element as the reference's scan body, with a
+hundred or so launches whatever the scalar count.
 
 The tendency of theta on every stage, and of each loop scalar on the
 stages where no limiter runs, is the fused 5th/3rd-order advection kernel
 (`ops.adv_kernel.advect_scalar_5_3`) whenever the configured orders are
-(5, 3); other orders take `advection.advect_scalar` and the loop.
+(5, 3); other orders take `advection.advect_scalar`.
 
 Tensors of the incoming state are never written: new stage fields are new
 tensors, and the few in-place writes below go into tensors computed here.
@@ -93,6 +99,28 @@ def _w_damp_profile(grid: Grid, cfg: Config):
     return dyn.dampcoef * torch.sin(0.5 * math.pi * frac) ** 2
 
 
+def _plain_update(q_pad, phi_old, pt_q, limiter: AdvLimiter, ru_s, rv_s, ww_s,
+                  mu_full, mu_full_new, dts, grid: Grid, hx: HaloOps, h_s: int, v_s: int):
+    """(phi_old + dts (-div F + mu pt)) / mu_new for one scalar (nz, ny, nx)
+    or a stack of them (nt, nz, ny, nx): the fluxes of the configured
+    orders, limited by `limiter`, and the result clipped at zero under
+    either limiter, as the reference's loop, scan and stacked bodies do."""
+    fx, fy, fz = adv.scalar_fluxes(q_pad, ru_s, rv_s, ww_s, h_s, v_s)
+    if limiter == AdvLimiter.POSITIVE_DEFINITE:
+        fx, fy, fz = adv.pd_limit(q_pad, phi_old, fx, fy, fz, ru_s, rv_s, ww_s,
+                                  dts, grid, hx)
+    elif limiter == AdvLimiter.MONOTONIC:
+        fx, fy, fz = adv.mono_limit(q_pad, phi_old, mu_full_new, fx, fy, fz,
+                                    ru_s, rv_s, ww_s, dts, grid, hx)
+    tend = adv.flux_div(fx, fy, fz, grid)
+    if pt_q is not None:
+        tend = tend + mu_full * pt_q
+    qn = (phi_old + dts * tend) / mu_full_new
+    if limiter != AdvLimiter.NONE:
+        qn = torch.clamp(qn, min=0.0)
+    return qn
+
+
 def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
          phys_tend: Optional[Dict[str, torch.Tensor]] = None) -> State:
     """Advance the dynamical state one dt (physics tendencies held fixed)."""
@@ -114,10 +142,6 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         final_scalars = tuple(q for q in scalars if q not in stage_set)
     else:
         final_scalars = ()
-    if final_scalars and dyn.chem_adv_opt == AdvLimiter.MONOTONIC:
-        raise NotImplementedError(
-            "the monotonic limiter (chem_adv_opt=mono) is not ported yet; it comes "
-            "with a later slice (ROADMAP Queue 1 item 7, remaining physics)")
     stage_scalars = tuple(q for q in scalars if q not in final_scalars)
 
     h_m, v_m = dyn.h_mom_adv_order.value, dyn.v_mom_adv_order.value
@@ -125,8 +149,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
     fused_53 = (h_s, v_s) == (5, 3)
 
     # ---- scalar batching decision (the reference's scan/stack gates) -----
-    batched = fused_53 and len(stage_scalars) >= min(dyn.scan_tracer_min,
-                                                     dyn.stack_tracer_min)
+    batched = len(stage_scalars) >= min(dyn.scan_tracer_min, dyn.stack_tracer_min)
     loop_names = () if batched else stage_scalars
 
     def scalar_tend(q_pad, ru, rv, ww_):
@@ -297,12 +320,21 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             ru_s, rv_s, ww_s = gF["ru"], gF["rv"], avg_flux["ww"]
         else:
             ru_s, rv_s, ww_s = ru_pad, rv_pad, ww
-        # the limiter is PD here: check_config refuses the monotonic one
-        limited = final and dyn.moist_adv_opt != AdvLimiter.NONE
+        limiter = dyn.moist_adv_opt if final else AdvLimiter.NONE
+
+        def update(q_pad, phi, pt_q, lim):
+            """One flux-form update of the uncoupled scalar(s) in `q_pad`."""
+            return _plain_update(q_pad, phi, pt_q, lim, ru_s, rv_s, ww_s, mu_full,
+                                 mu_full_new, dts, grid, hx, h_s, v_s)
+
         if batched:
-            sc_stack = advect_tracers(hx.pad(sc_stack, 3), phi_stack, ru_s, rv_s,
-                                      ww_s, mu_full, mu_full_new, grid, hx, dts,
-                                      pt=pt_stack, pd=limited, clip=limited)
+            if fused_53 and limiter != AdvLimiter.MONOTONIC:
+                pd = limiter == AdvLimiter.POSITIVE_DEFINITE
+                sc_stack = advect_tracers(hx.pad(sc_stack, 3), phi_stack, ru_s, rv_s,
+                                          ww_s, mu_full, mu_full_new, grid, hx, dts,
+                                          pt=pt_stack, pd=pd, clip=pd)
+            else:
+                sc_stack = update(hx.pad(sc_stack, 3), phi_stack, pt_stack, limiter)
             # diagnose() reads the moist subset every stage; the others
             # unstack once, at the end
             for q, i in moist_idx.items():
@@ -311,37 +343,23 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
                 for i, q in enumerate(stage_scalars):
                     new[q] = sc_stack[i]
         for q in loop_names:
-            q_pad = gA[q]
-            if limited:
-                fx, fy, fz = adv.scalar_fluxes(q_pad, ru_s, rv_s, ww_s, h_s, v_s)
-                fx, fy, fz = adv.pd_limit(q_pad, phi_old[q], fx, fy, fz,
-                                          ru_s, rv_s, ww_s, dts, grid, hx)
-                adv_t = adv.flux_div(fx, fy, fz, grid)
+            if limiter == AdvLimiter.NONE:
+                tend = (scalar_tend(gA[q], ru_s, rv_s, ww_s)
+                        + mu_full[None] * pt.get(q, 0.0))
+                new[q] = (phi_old[q] + dts * tend) / mu_full_new[None]
             else:
-                adv_t = scalar_tend(q_pad, ru_s, rv_s, ww_s)
-            tend = adv_t + mu_full[None] * pt.get(q, 0.0)
-            qn = (phi_old[q] + dts * tend) / mu_full_new[None]
-            if limited:
-                qn = torch.clamp(qn, min=0.0)
-            new[q] = qn
+                new[q] = update(gA[q], phi_old[q], pt.get(q), limiter)
 
         if final and final_scalars:
             # chem tracers: one final-stage update from the step-start value
             # (their state still holds it) with the time-averaged fluxes
-            pd = dyn.chem_adv_opt == AdvLimiter.POSITIVE_DEFINITE
             fin_pad = hx.pad(sc_fin, 3)
-            if fused_53:
+            if fused_53 and dyn.chem_adv_opt != AdvLimiter.MONOTONIC:
+                pd = dyn.chem_adv_opt == AdvLimiter.POSITIVE_DEFINITE
                 fin_new = advect_tracers(fin_pad, phi_fin, ru_s, rv_s, ww_s, mu_full,
                                          mu_full_new, grid, hx, dts, pd=pd, clip=pd)
             else:
-                fx, fy, fz = adv.scalar_fluxes(fin_pad, ru_s, rv_s, ww_s, h_s, v_s)
-                if pd:
-                    fx, fy, fz = adv.pd_limit(fin_pad, phi_fin, fx, fy, fz,
-                                              ru_s, rv_s, ww_s, dts, grid, hx)
-                fin_new = (phi_fin + dts * adv.flux_div(fx, fy, fz, grid)) \
-                    / mu_full_new[None, None]
-                if pd:
-                    fin_new = torch.clamp(fin_new, min=0.0)
+                fin_new = update(fin_pad, phi_fin, None, dyn.chem_adv_opt)
             for i, q in enumerate(final_scalars):
                 new[q] = fin_new[i]
 

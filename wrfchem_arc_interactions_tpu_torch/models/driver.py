@@ -83,7 +83,7 @@ class Simulation:
             cfg, hx, dt = self.cfg, self.hx, self.dt
             if key == "main":
                 def fn(s, g, t_s):
-                    s, tend = pre_dynamics(s, g, cfg, hx)
+                    s, tend = pre_dynamics(s, g, cfg, hx, dt, t_s)
                     s = dyn_step(s, g, cfg, hx, dt, tend)
                     return post_dynamics(s, g, cfg, dt)
             elif key == "rad":

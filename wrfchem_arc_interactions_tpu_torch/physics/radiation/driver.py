@@ -1,12 +1,12 @@
 """Radiation driver (port of the JAX package's
 `physics/radiation/driver.py`; canonical: phys/module_radiation_driver.F):
-column inputs, the solar zenith angle, the RRTMG SW/LW solvers on the radt
-alarm, the flux divergence as held theta tendencies (the grid%rthraten
-pattern), and the aerosol optical properties from chem when
+column inputs, the solar zenith angle, the RRTMG SW/LW solvers (or the
+simple broadband scheme, `radiation.simple`) on the radt alarm, the flux
+divergence as held theta tendencies (the grid%rthraten pattern), and the aerosol optical properties from chem when
 ``aer_ra_feedback`` is on — the aerosol-radiation (ARC direct effect)
 coupling point.
 
-The LW and SW solvers run over chunks of at most `COL_CHUNK` columns, as
+The RRTMG solvers run over chunks of at most `COL_CHUNK` columns, as
 the reference's `_map_col_chunks` runs them, which bounds the live
 (ngpt, nz, chunk) temporaries.  Every result is column-independent (the
 McICA deviates hash only the g-point, the layer and the seed), so a chunked
@@ -27,6 +27,7 @@ from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.physics.radiation import mcica
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.rrtmg_lw import lw_fluxes
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.rrtmg_sw import sw_fluxes
+from wrfchem_arc_interactions_tpu_torch.physics.radiation.simple import lw_simple, sw_simple
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
 
@@ -109,16 +110,11 @@ def _columns(state: State, grid: Grid, cfg: Config):
 
 def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
                      julian_day=JULIAN_DAY) -> State:
-    """RRTMG SW + LW on the current state: returns the state with the held
+    """RRTMG (or simple) SW + LW on the current state: returns the state with the held
     heating rates (rthraten_sw/lw), the surface and TOA fluxes and, with
     ``icloud=1``, the diagnosed cloud fraction.  `time_s` (seconds of UTC
     time since the run's day start) and `julian_day` are taken as float32."""
     phys = cfg.physics
-    for scheme in (phys.ra_sw_physics, phys.ra_lw_physics):
-        if scheme not in (RAScheme.NONE, RAScheme.RRTMG):
-            raise NotImplementedError(
-                f"radiation scheme {scheme.value!r} is not ported yet; it comes "
-                "with a later slice (ROADMAP Queue 1 item 7, remaining physics)")
     p_lay, t_lay, dp_lay, qv, lwp, qcond, t_sfc, exner, (nz, ny, nx) = \
         _columns(state, grid, cfg)
     ncol = ny * nx
@@ -144,7 +140,12 @@ def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
     out = dict(state)
     if cf is not None and "cldfra" in state:
         out["cldfra"] = unflat(cf)
-    if phys.ra_lw_physics == RAScheme.RRTMG:
+    if phys.ra_lw_physics == RAScheme.SIMPLE:
+        lw = lw_simple(p_lay, t_lay, dp_lay, qv, lwp, t_sfc)
+        out["rthraten_lw"] = unflat(lw["heating"] / exner)
+        out["glw"] = unflat(lw["glw"])
+        out["olr"] = unflat(lw["olr"])
+    elif phys.ra_lw_physics == RAScheme.RRTMG:
         kw = {}
         if aer_lw is not None:
             kw["tau_aer_lw"] = aer_lw
@@ -154,10 +155,16 @@ def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
         out["rthraten_lw"] = unflat(lw["heating"] / exner)
         out["glw"] = unflat(lw["glw"])
         out["olr"] = unflat(lw["olr"])
-    if phys.ra_sw_physics == RAScheme.RRTMG:
+    if phys.ra_sw_physics != RAScheme.NONE:
         mu0 = cos_zenith(time_s, grid.xlat, grid.xlong,
                          julian_day=julian_day).reshape(ncol)
         albedo = torch.full((ncol,), ALBEDO, dtype=p_lay.dtype, device=p_lay.device)
+    if phys.ra_sw_physics == RAScheme.SIMPLE:
+        sw = sw_simple(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo)
+        out["rthraten_sw"] = unflat(sw["heating"] / exner)
+        out["swdown"] = unflat(sw["swdown"])
+        out["swupt"] = unflat(sw["swup_toa"])
+    elif phys.ra_sw_physics == RAScheme.RRTMG:
         kw = {}
         if aer_sw is not None:
             kw["tau_aer_sw"], kw["ssa_aer_sw"], kw["asy_aer_sw"] = aer_sw

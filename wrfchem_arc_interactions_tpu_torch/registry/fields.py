@@ -6,14 +6,14 @@ Morrison's twelve), the surface fields every configuration carries, the
 radiation fields (held heating rates, surface and TOA fluxes, cloud
 fraction), the chem tracers of the MOSAIC 4- and 8-bin packages (with the
 cloud-borne phase under ``cldchem_onoff`` and the CBM-Z gases for the
-``cbmz_`` packages) and the aerosol optical arrays.  The PBL,
-land-surface, cumulus, TKE and stochastic-physics entries come with their
-slices; a configuration that needs them is refused by
-`utils.support.check_config` before any table is built.
+``cbmz_`` packages) and the aerosol optical arrays, the convective rain, the surface-layer and PBL
+fields, the Noah soil state, the stochastic-physics patterns and the TKE
+closures' prognostic `tke` and `qke`.  A configuration the port does not
+carry is refused by `utils.support.check_config` before any table is built.
 
 Layout: 3D fields are (z, y, x); "zs" is the staggered vertical axis of
 length nz+1 (w levels); `extra` adds leading axes (the band axis of the
-aerosol optical arrays).  Horizontal staggering does not change array sizes:
+aerosol optical arrays, the soil axis of the Noah state).  Horizontal staggering does not change array sizes:
 u[k, j, i] lives at the west face of mass cell i, v[k, j, i] at the south
 face of cell j.
 """
@@ -26,7 +26,9 @@ from typing import Tuple
 from wrfchem_arc_interactions_tpu_torch.chem.gas import GAS_SPECIES
 from wrfchem_arc_interactions_tpu_torch.chem.mosaic.bins import AER_SPECIES
 from wrfchem_arc_interactions_tpu_torch.config import ChemConfig, Config
-from wrfchem_arc_interactions_tpu_torch.config.namelist import ChemOpt, RAScheme
+from wrfchem_arc_interactions_tpu_torch.config.namelist import (
+    ChemOpt, CUScheme, KMOpt, PBLScheme, RAScheme, SFScheme, SFSurface,
+)
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.bands import NBND_LW, NBND_SW
 from wrfchem_arc_interactions_tpu_torch.utils.support import check_config
 
@@ -153,6 +155,11 @@ def _phys_fields(cfg: Config) -> Tuple[FieldSpec, ...]:
         FieldSpec("rainnc", DIMS_YX, STAG_NONE, "mm",
                   "accumulated grid-scale precipitation", restart=True, history=True),
     ]
+    if ph.cu_physics != CUScheme.NONE:
+        specs.append(
+            FieldSpec("rainc", DIMS_YX, STAG_NONE, "mm",
+                      "accumulated convective precipitation",
+                      restart=True, history=True))
     if ph.ra_sw_physics != RAScheme.NONE or ph.ra_lw_physics != RAScheme.NONE:
         # radiative theta tendencies are held between radiation calls, like
         # grid%rthraten in the reference
@@ -173,6 +180,56 @@ def _phys_fields(cfg: Config) -> Tuple[FieldSpec, ...]:
                       "diagnosed cloud fraction (icloud option)",
                       restart=True, history=True),
         ]
+    if ph.bl_pbl_physics != PBLScheme.NONE or ph.sf_sfclay_physics != SFScheme.NONE:
+        specs += [
+            FieldSpec("hfx", DIMS_YX, STAG_NONE, "W m-2", "surface sensible heat flux",
+                      restart=True, history=True),
+            FieldSpec("qfx", DIMS_YX, STAG_NONE, "kg m-2 s-1", "surface moisture flux",
+                      restart=True, history=True),
+            FieldSpec("ust", DIMS_YX, STAG_NONE, "m s-1", "friction velocity",
+                      restart=True),
+            FieldSpec("pblh", DIMS_YX, STAG_NONE, "m", "PBL height",
+                      restart=True, history=True),
+            FieldSpec("tmn", DIMS_YX, STAG_NONE, "K", "deep soil temperature",
+                      restart=True),
+        ]
+    if ph.sf_surface_physics == SFSurface.NOAH:
+        # Noah 4-layer soil state (canonical TSLB/SMOIS, num_soil_layers=4)
+        specs += [
+            FieldSpec("tslb", DIMS_YX, STAG_NONE, "K",
+                      "soil temperature per layer", extra=(("soil", 4),),
+                      restart=True, history=True),
+            FieldSpec("smois", DIMS_YX, STAG_NONE, "m3 m-3",
+                      "soil moisture per layer", extra=(("soil", 4),),
+                      restart=True, history=True),
+            FieldSpec("rain_prev", DIMS_YX, STAG_NONE, "mm",
+                      "accumulated precip at the previous LSM call "
+                      "(for the infiltration rate)", restart=True),
+            FieldSpec("snow", DIMS_YX, STAG_NONE, "kg m-2",
+                      "snow water equivalent", restart=True, history=True),
+            FieldSpec("ivgtyp", DIMS_YX, STAG_NONE, "1",
+                      "vegetation class index into the lsm.VEG_* tables",
+                      restart=True),
+        ]
+    if cfg.dynamics.sppt_amp > 0.0 or cfg.dynamics.skebs_amp > 0.0:
+        # stochastic-physics pattern state (the physical-space AR(1) patterns)
+        specs += [
+            FieldSpec("sppt_pattern", DIMS_YX, STAG_NONE, "1",
+                      "SPPT random pattern (AR1)", restart=True),
+            FieldSpec("skebs_psi", DIMS_YX, STAG_NONE, "1",
+                      "SKEBS streamfunction pattern (AR1)", restart=True),
+        ]
+    if cfg.dynamics.km_opt == KMOpt.TKE_15:
+        specs.append(
+            FieldSpec("tke", DIMS_ZYX, STAG_NONE, "m2 s-2",
+                      "subgrid turbulent kinetic energy", halo=2, restart=True,
+                      advected=True, positive=True))
+    if ph.bl_pbl_physics == PBLScheme.MYNN:
+        # MYNN level-2.5 prognostic QKE = 2*TKE, advected
+        specs.append(
+            FieldSpec("qke", DIMS_ZYX, STAG_NONE, "m2 s-2",
+                      "MYNN QKE (2x turbulent kinetic energy)", halo=3,
+                      restart=True, advected=True, positive=True))
     return tuple(specs)
 
 
