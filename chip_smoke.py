@@ -49,9 +49,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    times, a profile of one chem call, and the Mie kernel on that call's own
    inputs (distinct floor cells per warp, device time per bin, within
    3.2e-4 of its plain version);
-9. config-4 cross-check: 3 steps of a small config 4 from noon UTC (both
+9. slice-8 phase, this slice's main path: config 4 run as a user runs it
+   (`_cfg8`): one `Simulation` with an output directory (history and
+   restart every 300 s, auxhist every 600 s, all netCDF through the
+   port's g++-built backend, which must build), the NaN check, an emission
+   stream of two files (0 s and 300 s) feeding the emission stage, four
+   tslist points, phase timing and a `guard` every 10 steps: one 100-step
+   window from step 0 with config 4's exact launches (300 / 400 / 40 /
+   10), each write timed between two device synchronisations with its
+   file's bytes, then `write_tslist` and `flush`; a run restarted from the
+   step-50 file equal to the unbroken one bit for bit in every restart
+   field after 50 more steps; one history file read by scipy's netCDF
+   reader equal to the state; `guard` locating a NaN put into a copy of
+   theta;
+10. config-4 cross-check: 3 steps of a small config 4 from noon UTC (both
    alarms every step) on the card against the CPU;
-10. slice-6 phase: bench.py's --config4-8bin
+11. slice-6 phase: bench.py's --config4-8bin
    (config 4 with cbmz_mosaic_8bin) with emissions (seeded surface fluxes
    and fire sources lifted by plume rise), the cloud-borne phase with
    aqueous chemistry and wet scavenging: 219 advected scalars, 2 warm-up
@@ -61,9 +74,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    number in cloudy updrafts, and rain lowering the scavenged fields; the
    synchronised phase times, profiles of a chem call and a main step, the
    Mie kernel on the 8 bins' own inputs;
-11. slice-6 cross-check: 3 steps at 16x8x20 from noon on the card against
+12. slice-6 cross-check: 3 steps at 16x8x20 from noon on the card against
    the CPU;
-12. slice-7 phase, this slice's main path: config 4 with WRF-Chem's usual
+13. slice-7 phase: config 4 with WRF-Chem's usual
    transport and boundary layer (`_cfg7`: moist and chem scalars under the
    monotonic limiter, the 6th-order filter, 2D Smagorinsky with kvdif = 0,
    YSU over the revised MM5 surface layer and the Noah land surface): 2
@@ -73,11 +86,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    the PBL height inside the domain and the soil state in its bounds; the
    synchronised phase times, a profile of one main step, and the scalar
    advection and multi-tracer kernels bitwise on one main step's calls;
-13. slice-7 cross-checks, card against CPU, 3 steps each from noon: the
+14. slice-7 cross-checks, card against CPU, 3 steps each from noon: the
    slice-7 configuration at 16x8x20; the LES case with the TKE closure and
    WENO5; SPPT and SKEBS; MYNN over the slab surface; BMJ, KF and Grell with
    WSM6 at dx = 10 km; the simple radiation;
-14. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
+15. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
    of the multi-tracer kernel): that kernel timed at 47 scalars on the
    grid, 3 steps with one rad and one chem call and exact launches, and
    the rad call's peak memory.
@@ -1052,7 +1065,8 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
     """BASELINE config 4 through `Simulation`: one 100-step window with 10
     chem calls and 1 rad call, the physical checks, the exact launch counts
     of all four kernels, the synchronised phase times and a profile of one
-    chem call.  Returns (launches, numbers)."""
+    chem call.  Returns (launches, the Mie kernel's numbers on the path's
+    inputs, ms/step of the window)."""
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
     from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
@@ -1150,7 +1164,230 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
     for t_us, count, key in rows2[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
     dycore_on_path(lambda: sim.advance(1), "config 4")
-    return launches, mie_path
+    return launches, mie_path, ms_step
+
+
+# the tslist points of slice 8's run: (label, j, i) on the 100x100 grid
+TS_POINTS8 = (("sw", 10, 10), ("center", 50, 50), ("line", 50, 25), ("ne", 90, 90))
+HISTORY_S, RESTART_S, AUXHIST_S = 300.0, 300.0, 600.0
+
+
+def _cfg8(nx=100, ny=100, nz=50):
+    """Slice 8's path: config 4 exactly as `_cfg4` builds it, with the
+    emission stage on (fed by the stream), history and restart every 300 s,
+    auxhist every 600 s and four tslist points."""
+    import dataclasses
+    cfg = _cfg4(nx, ny, nz)
+    return cfg.replace(
+        time_control=dataclasses.replace(
+            cfg.time_control, history_interval_s=HISTORY_S, restart_interval_s=RESTART_S,
+            auxhist_interval_s=AUXHIST_S, ts_points=TS_POINTS8),
+        chem=dataclasses.replace(cfg.chem, emiss_opt=True))
+
+
+class _TimedWrites:
+    """Time each call of the output writers while a block runs: a device
+    synchronisation before the call (so that the queued steps are not
+    counted) and one after it.  {kind: [(path, seconds)]}."""
+
+    def __init__(self):
+        from wrfchem_arc_interactions_tpu_torch.io import diags, history
+        self.targets = {"history": (history, "write_history"),
+                        "restart": (history, "write_restart"),
+                        "auxhist": (diags, "write_diags")}
+        self.calls = {k: [] for k in self.targets}
+        self.inner = {k: getattr(m, n) for k, (m, n) in self.targets.items()}
+
+    def __enter__(self):
+        for kind, (module, name) in self.targets.items():
+            def timed(path, *args, _kind=kind, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self.inner[_kind](path, *args, **kw)
+                torch.cuda.synchronize()
+                self.calls[_kind].append((path, time.perf_counter() - t0))
+            setattr(module, name, timed)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for kind, (module, name) in self.targets.items():
+            setattr(module, name, self.inner[kind])
+        return False
+
+
+def _stream8(grid, out_dir):
+    """Two emission files, at 0 s and 300 s (`_emissions6`'s fluxes from two
+    seeds), written as netCDF and read back as an `EmissionStream`."""
+    from wrfchem_arc_interactions_tpu_torch.io import auxinput
+    paths = []
+    for i, (t_s, seed) in enumerate(((0.0, 8), (300.0, 9))):
+        snap = {k: v.cpu().numpy() for k, v in _emissions6(grid, seed=seed).items()}
+        paths.append(f"{out_dir}/wrfchemi_d01_{i}.nc")
+        auxinput.write_emissions(paths[-1], snap, t_s)
+    return auxinput.EmissionStream.from_files(paths)
+
+
+def _sim8(cfg, grid, state, stream, out_dir=None):
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    return Simulation(cfg, grid, state, output_dir=out_dir, check_nans=True,
+                      emissions=stream, device=grid.mub.device)
+
+
+def slice8_phase(dev, card, ms_step4, steps=RAD_CHEM_EVERY):
+    """Slice 8's path: config 4 run as a user runs it (`_cfg8`): one
+    `Simulation` with an output directory, the NaN check, an emission
+    stream of two files and four tslist points runs one 100-step window
+    with phase timing and a `guard` every 10 steps, then writes the tslist
+    files and flushes.  Checks: the native netCDF backend built, every file
+    is netCDF, the exact launches of config 4's window, a restart from the
+    step-50 file equal to the unbroken run bit for bit in every restart
+    field after 50 more steps, one history file read by scipy equal to the
+    state, and `guard` locating a NaN put into a copy of theta.  The same
+    run without the output alarms goes first: its ms/step is the baseline
+    of what the writes cost, and its state at step 100 must equal the run
+    with output bit for bit.  Returns (launches, numbers)."""
+    import os
+    import tempfile
+    from scipy.io import netcdf_file
+    from wrfchem_arc_interactions_tpu_torch.io import history as hio
+    from wrfchem_arc_interactions_tpu_torch.io import netcdf as ncio
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.registry.state import restart_names
+    from wrfchem_arc_interactions_tpu_torch.utils.checks import guard
+    if not ncio.available():
+        raise RuntimeError(f"slice 8: the native netCDF backend did not build: "
+                           f"{ncio.unavailable_reason()}")
+    cfg = _cfg8()
+    grid, state0 = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    state0 = _seed4(state0)
+    guards = {"base": [], "output": []}
+
+    def every_10(key):
+        def on_step(sim):
+            if sim.step_idx % 10 == 0:
+                guard(sim.state, sim.grid, sim.dt, sim.hx, sim.step_idx)
+                guards[key].append(sim.step_idx)
+        return on_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/run"
+        stream = _stream8(grid, tmp)
+        # the same run without the output alarms: what they cost the window,
+        # and a second unbroken run to hold the first to (determinism)
+        base = _sim8(cfg, grid, state0, stream)
+        t0 = time.perf_counter()
+        base.advance(steps, on_step=every_10("base"), phase_timing=True)
+        base.sync()
+        wall_base = time.perf_counter() - t0
+        sim = _sim8(cfg, grid, state0, stream, out)
+        _reset_counts()
+        with _TimedWrites() as writes:
+            t0 = time.perf_counter()
+            sim.advance(steps, on_step=every_10("output"), phase_timing=True)
+            sim.sync()
+            wall = time.perf_counter() - t0
+        launches = _counts()
+        t0 = time.perf_counter()
+        ts_files = sim.write_tslist(f"{out}/ts")
+        hio.flush()
+        flush_s = time.perf_counter() - t0
+        n_chem = steps // sim.chem_every
+        want = {"advect_scalar_5_3": 3 * steps,
+                "advect_tracers": _tracer_grids_per_step() * steps,
+                "mie_cheb_eval": 4 * n_chem, "ros2_integrate": n_chem}
+        if launches != want:
+            raise RuntimeError(f"slice 8: kernel launches in the {steps}-step window "
+                               f"{launches}, expected config 4's {want}")
+        files = sorted(f for f in os.listdir(out) if f != "ts")
+        expect = sorted(f"{kind}_{n:06d}.nc" for kind, every in (
+            ("hist", sim.hist_every), ("restart", sim.rst_every), ("auxdiag", sim.aux_every))
+            for n in range(every, steps + 1, every))
+        if files != expect:
+            raise RuntimeError(f"slice 8: files {files}, expected {expect}")
+        sizes = {f: os.path.getsize(f"{out}/{f}") for f in files}
+        rows = sim.ts_series
+        if any(len(r) != steps for r in rows.values()) or not all(
+                np.isfinite(v) for r in rows.values() for row in r for v in row.values()):
+            raise RuntimeError(f"slice 8: tslist rows {[len(r) for r in rows.values()]}")
+        if any(g != list(range(10, steps + 1, 10)) for g in guards.values()):
+            raise RuntimeError(f"slice 8: guard ran at steps {guards}")
+
+        # an independent reader: scipy's netCDF implementation
+        f = netcdf_file(f"{out}/hist_{steps:06d}.nc", "r", mmap=False)
+        try:
+            t_file = np.array(f.variables["t"][:])
+            time_s = float(f._attributes["_time_s"])
+        finally:
+            f.close()
+        if not (np.array_equal(t_file, sim.state["t"].cpu().numpy()) and time_s == sim.time_s):
+            raise RuntimeError("slice 8: the history file read by scipy differs from the state")
+
+        # restart from the step-50 file; 50 more steps equal the unbroken run
+        half = steps // 2
+        if half % sim.rst_every:
+            raise RuntimeError(f"slice 8: no restart file at step {half}")
+        restored, step, t_s = hio.read_restart(f"{out}/restart_{half:06d}.nc", cfg, state0)
+        if (step, t_s) != (half, half * cfg.time_control.dt):
+            raise RuntimeError(f"slice 8: restart file at step {step}, time {t_s}")
+        again = _sim8(cfg, grid, restored, stream)
+        again.step_idx, again.time_s = step, t_s
+        t0 = time.perf_counter()
+        again.advance(steps - half)
+        again.sync()
+        restart_wall = time.perf_counter() - t0
+        names = restart_names(cfg)
+        differ = [n for n in names if not torch.equal(sim.state[n], again.state[n])]
+        nondet = [n for n in names if not torch.equal(sim.state[n], base.state[n])]
+        if differ or nondet:
+            raise RuntimeError(f"slice 8: the restarted run differs from the unbroken run "
+                               f"with output in {len(differ)} of {len(names)} restart fields "
+                               f"{differ[:8]}; the run without output in {len(nondet)} "
+                               f"{nondet[:8]}")
+
+    # guard locates a NaN put into a copy of theta
+    t_bad = sim.state["t"].clone()
+    t_bad[7, 42, 63] = float("nan")
+    try:
+        guard(dict(sim.state, t=t_bad), sim.grid, sim.dt, sim.hx, sim.step_idx)
+    except FloatingPointError as e:
+        guard_msg = str(e)
+    else:
+        raise RuntimeError("slice 8: guard passed a state with a NaN in theta")
+    if "(k,j,i)=" not in guard_msg or "63" not in guard_msg:
+        raise RuntimeError(f"slice 8: guard's message has no location: {guard_msg}")
+
+    ms_step, ms_base = wall / steps * 1e3, wall_base / steps * 1e3
+    write_s = {k: [s for _, s in v] for k, v in writes.items()}
+    write_bytes = {k: [sizes[os.path.basename(p)] for p, _ in v] for k, v in writes.items()}
+    total_write = sum(sum(v) for v in write_s.values())
+    d = cfg.domain
+    print(f"slice 8 (config 4 with output, restart, auxhist, tslist, NaN check, guard "
+          f"every 10 steps, emission stream of 2 files, phase timing): {steps} steps of "
+          f"{d.nx}x{d.ny}x{d.nz} from step 0: {ms_step:.3f} ms/step [{card}]; the same run "
+          f"without the output alarms {ms_base:.3f} ms/step, config 4's window (no stream, "
+          f"no checks, no phase timing) {ms_step4:.3f} ms/step; phases in the window "
+          f"{ {k: round(v * 1e3, 3) for k, v in sim.phase_times.items()} } ms, without output "
+          f"{ {k: round(v * 1e3, 3) for k, v in base.phase_times.items()} } ms; kernel "
+          f"launches {launches} (config 4's)")
+    for kind in ("history", "restart", "auxhist"):
+        print(f"  {kind} writes: " + ", ".join(
+            f"{s * 1e3:.1f} ms for {b / 2**20:.1f} MiB" for s, b in zip(write_s[kind],
+                                                                      write_bytes[kind])))
+    print(f"  writes synchronised {total_write * 1e3:.1f} ms in all = {total_write / steps * 1e3:.3f}"
+          f" ms/step of the window; write_tslist + flush {flush_s * 1e3:.1f} ms; tslist "
+          f"{len(ts_files)} files of {steps} rows")
+    print(f"slice 8 restart: {steps - half} steps from restart_{half:06d}.nc ({restart_wall / (steps - half) * 1e3:.3f}"
+          f" ms/step) equal the unbroken run bit for bit in all {len(names)} restart fields, "
+          f"and so does the run without output; "
+          f"scipy reads hist_{steps:06d}.nc's theta equal to the state; guard: {guard_msg}")
+    numbers = {"ms_step": ms_step, "no_output_ms_step": ms_base,
+               "config4_ms_step": ms_step4, "restarted_ms_step": restart_wall / (steps - half) * 1e3,
+               "phase_ms": {k: v * 1e3 for k, v in sim.phase_times.items()},
+               "no_output_phase_ms": {k: v * 1e3 for k, v in base.phase_times.items()},
+               "write_ms": {k: [s * 1e3 for s in v] for k, v in write_s.items()},
+               "write_bytes": write_bytes, "flush_ms": flush_s * 1e3,
+               "restart_fields_compared": len(names), "restart_fields_differing": 0}
+    return launches, numbers
 
 
 def _check_emissions(call, dt):
@@ -1749,8 +1986,10 @@ def main(argv=None) -> int:
                            start_date="2000-06-20_12:00:00"), _seed, "config 3")
     del sim, grid, state
     torch.cuda.empty_cache()
-    launches4, mie_path = slice4_phase(dev, card, args.steps)
+    launches4, mie_path, ms_step4 = slice4_phase(dev, card, args.steps)
     entries["mie_cheb_eval"]["config4_inputs"] = mie_path
+    torch.cuda.empty_cache()
+    launches8, numbers8 = slice8_phase(dev, card, ms_step4, args.steps)
     torch.cuda.empty_cache()
     cross_check(dev, _cfg4(nx=32, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
                            start_date="2000-06-20_12:00:00"), _seed4, "config 4")
@@ -1782,19 +2021,21 @@ def main(argv=None) -> int:
           for b in entries["mie_cheb_eval"][path].values()))
     for name, by_path in ON_PATH.items():
         entries[name]["bitwise_on_path_calls"] = by_path
-    # "launches" is the count of this slice's main path, the slice-7 window,
-    # which runs all four kernels; the earlier paths' counts stand beside it
+    # "launches" is the count of this slice's main path, the slice-8 window
+    # (config 4 run as a user runs it), which runs all four kernels; the
+    # earlier paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches7[name]
-        entry["launches_by_path"] = {"slice7_window": launches7[name],
+        entry["launches"] = launches8[name]
+        entry["launches_by_path"] = {"slice8_window": launches8[name],
+                                     "slice7_window": launches7[name],
                                      "slice6_window": launches6[name],
                                      "config4_window": launches4[name],
                                      "config3_window": launches3[name],
                                      "slice1_10_steps": launches1[name],
                                      "config3_1000x100_3_steps": launches_wide[name]}
-        if launches7[name] < 1:
-            raise RuntimeError(f"{name} was not launched on slice 7's path")
-    print(json.dumps({"slice6": numbers6, "slice7": numbers7}))
+        if launches8[name] < 1:
+            raise RuntimeError(f"{name} was not launched on slice 8's path")
+    print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

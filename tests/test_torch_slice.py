@@ -246,7 +246,6 @@ print("OK")
     ({"dynamics": (("fft_filter_lat", 45.0),)}, "squall2d_x", "item 9"),
     ({"fdda": (("grid_fdda", True),)}, "squall2d_x", "item 9"),
     ({"parallel": (("mesh_x", 2),)}, "squall2d_x", "item 10"),
-    ({"time_control": (("ts_points", (("p1", 1, 1),)),)}, "squall2d_x", "item 8"),
     ({}, "hill2d_x", "item 9"),
 ])
 def test_unported_options_raise(change, case, item):
@@ -261,3 +260,15 @@ def test_unported_options_raise(change, case, item):
         tc = tc.replace(**{group: sub})
     with pytest.raises(NotImplementedError, match=item):
         tideal.make_case(tc, case, device="cpu")
+
+
+@pytest.mark.parametrize("arg,item", [("mesh", "item 10"), ("boundary", "item 9"),
+                                      ("fdda", "item 9")])
+def test_unported_simulation_arguments_raise(arg, item):
+    """`Simulation` takes the reference's mesh, boundary and fdda arguments
+    as None only; anything else raises, naming the ROADMAP item that brings
+    it."""
+    _, tc = _cfgs(nx=8, ny=4, nz=6)
+    grid, state = tideal.make_case(tc, "squall2d_x", device="cpu", bubble_amp=3.0)
+    with pytest.raises(NotImplementedError, match=item):
+        TSim(tc, grid, state, device="cpu", **{arg: object()})

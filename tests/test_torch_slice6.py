@@ -102,16 +102,3 @@ def test_slice6_simulation_matches_jax():
     assert float(s["chem_nh3"].max()) > 0.0                    # emitted, not seeded
     assert float(s["tau_aer_sw"].max()) > 0.0
 
-
-def test_emission_stream_is_refused():
-    """The hourly emission stream comes with run infrastructure: anything
-    but a dict of fluxes raises, naming the slice."""
-    jc, tc, jg, js, emis = _case()
-
-    class Stream:
-        def at_time(self, t):
-            return emis
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TSim(tc, jax_grid_to_port(jg), state_from_numpy(js, "cpu"), device="cpu",
-             emissions=Stream())

@@ -19,7 +19,10 @@ whole, the interactive-ARC step: Morrison two-moment microphysics with
 aerosol activation, CBM-Z gas chemistry with Fast-J photolysis and the
 MOSAIC aerosol dynamics; and with them the rest of the chem driver for the
 4- and 8-bin packages: constant emissions with plume rise, the cloud-borne
-aerosol phase with aqueous chemistry, and wet scavenging.  Four
+aerosol phase with aqueous chemistry, and wet scavenging; and the run
+infrastructure (`io/`: history, restart, auxhist and emission files in
+netCDF classic through the port's own C++ backend, built with g++ at first
+use, or npz; tslist series, the NaN and CFL guards).  Four
 hand-written CUDA kernels carry them (wrappers in `ops/`): the fused
 5th/3rd-order scalar advection tendency (`adv_kernel.py`), the fused
 multi-tracer RK-stage update (`tracers_kernel.py`, rows of any width), the

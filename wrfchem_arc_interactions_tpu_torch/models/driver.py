@@ -1,21 +1,29 @@
 """Time-integration driver (port of the JAX package's `models/driver.py`,
 the single-domain run loop).
 
-A `Simulation` owns the steppers, the step clock and the radt/chemdt alarm
-cadence.  The reference compiles three executables — "main" every step,
-"rad" and "chem" on their alarms — and the port keeps the same three
-steppers in the same alarm order within a step: chem, then rad, then main.
-Model time reaches the solar ephemeris (of the rad and of the chem stepper,
-whose photolysis rates follow the sun) and the McICA seed as float32, as
-the reference's ``t_now = jnp.float32(time_s)`` does.  Constant emissions
-(a dict of (ny, nx) fluxes) feed every chem call, as the reference's
-``"chem"`` stepper passes them.  History, restart, tslist, the hourly
-emission stream and nesting come with later slices.
+A `Simulation` owns the steppers, the step clock and the alarms (radt,
+chemdt, history, restart, auxhist), the step-time bookkeeping (the
+``Timing for main`` log lines, `phase_timing`), the NaN guard, the tslist
+series and the hourly emission stream.  The reference compiles three
+executables — "main" every step, "rad" and "chem" on their alarms — and the
+port keeps the same steppers in the same alarm order within a step: chem,
+then rad, then main.  Model time reaches the solar ephemeris (of the rad
+and of the chem stepper, whose photolysis rates follow the sun) and the
+McICA seed as float32, as the reference's ``t_now = jnp.float32(time_s)``
+does.  Emissions are a dict of constant (ny, nx) fluxes, fed to every chem
+call, or an `io.auxinput.EmissionStream`, whose snapshots go to the device
+once, when the `Simulation` is built.
+
+Every alarm counts from `step_idx`, so a run restarted from a restart file
+(`io.history.read_restart`, then `step_idx` and `time_s` set from it) writes
+and steps as the unbroken run does, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+import os
+import time
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -24,51 +32,88 @@ from wrfchem_arc_interactions_tpu_torch.chem.driver import chem_driver
 from wrfchem_arc_interactions_tpu_torch.config import Config
 from wrfchem_arc_interactions_tpu_torch.dycore.solve import step as dyn_step
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
+from wrfchem_arc_interactions_tpu_torch.io import diags
+from wrfchem_arc_interactions_tpu_torch.io import history as hio
+from wrfchem_arc_interactions_tpu_torch.io.auxinput import EmissionStream
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.physics.driver import post_dynamics, pre_dynamics
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import radiation_driver
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils.clock import ModelClock
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
-from wrfchem_arc_interactions_tpu_torch.utils.support import SLICE_RUN, check_config, check_grid
+from wrfchem_arc_interactions_tpu_torch.utils.logging import log
+from wrfchem_arc_interactions_tpu_torch.utils.support import (
+    SLICE_MESH, SLICE_REAL, check_config, check_grid, unported,
+)
+
+# pending tslist values are brought to the host at least this often
+_TS_PENDING_MAX = 1024
 
 
 class Simulation:
     def __init__(self, cfg: Config, grid: Grid, state: State,
-                 device: DeviceLike = None,
-                 emissions: Optional[Mapping[str, torch.Tensor]] = None):
+                 mesh=None, check_nans: bool = False,
+                 output_dir: Optional[str] = None,
+                 boundary=None, emissions=None, fdda=None,
+                 device: DeviceLike = None):
         """Run `cfg` from (grid, state) on `device` (default ``cuda``; raises
         if there is none and the CPU was not asked for).  The grid, the state
-        and the `emissions` ({species or ``elev_`` species: (ny, nx) flux,
-        ``heat_mw``: (ny, nx)}, used under ``emiss_opt``) are moved there."""
+        and the emissions — a dict ({species or ``elev_`` species: (ny, nx)
+        flux tensor, ``heat_mw``: (ny, nx)}, used under ``emiss_opt``) or an
+        `EmissionStream` — are moved there.  With `output_dir`, the history,
+        restart and auxhist alarms of ``cfg.time_control`` write files there;
+        with `check_nans`, every step checks theta (one device sync a step).
+        `mesh`, `boundary` and `fdda` are accepted as None only."""
         check_config(cfg)
         check_grid(grid)
-        if emissions is not None and not isinstance(emissions, Mapping):
-            raise NotImplementedError(
-                f"an emission stream ({type(emissions).__name__}) is not ported yet; "
-                f"it comes with {SLICE_RUN}")
+        if mesh is not None:
+            raise unported("Simulation on a device mesh", SLICE_MESH)
+        if boundary is not None:
+            raise unported("lateral boundary data (Simulation(boundary=...))", SLICE_REAL)
+        if fdda is not None:
+            raise unported("an analysis-nudging target (Simulation(fdda=...))", SLICE_REAL)
+        if not (emissions is None or isinstance(emissions, (Mapping, EmissionStream))):
+            raise TypeError(f"emissions must be a dict of (ny, nx) fluxes or an "
+                            f"EmissionStream, not {type(emissions).__name__}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.grid = grid.to(self.device)
         self.state = {k: v.to(self.device) for k, v in state.items()}
-        self.emissions = (None if emissions is None
-                          else {k: v.to(self.device) for k, v in emissions.items()})
+        self._stream_snaps = None
+        if isinstance(emissions, EmissionStream):
+            self.emissions = emissions
+            self._stream_snaps = [
+                {k: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
+                 for k, v in snap.items()} for snap in emissions.snaps]
+        else:
+            self.emissions = (None if emissions is None
+                              else {k: v.to(self.device) for k, v in emissions.items()})
+        self.check_nans = check_nans
+        self.output_dir = output_dir
         self.dt = cfg.time_control.dt
         self.time_s = 0.0
         self.step_idx = 0
+        self.step_times: List[float] = []
         self.hx = HaloOps(bc_x=cfg.dynamics.bc_x, bc_y=cfg.dynamics.bc_y)
-        # calendar clock for the solar geometry (utils/clock.py)
+        # calendar clock for the solar geometry and the log's timestamps
         self.clock = ModelClock(cfg.time_control.start_date)
         self._solar_off = self.clock.utc_offset_s()
         self._julian = self.clock.julian_day()
 
         # alarm cadences in steps (0 = never)
-        ph = cfg.physics
+        tc, ph = cfg.time_control, cfg.physics
+        self.hist_every = max(1, round(tc.history_interval_s / self.dt)) \
+            if (output_dir and tc.history_interval_s > 0) else 0
+        self.rst_every = max(1, round(tc.restart_interval_s / self.dt)) \
+            if (output_dir and tc.restart_interval_s > 0) else 0
+        self.aux_every = max(1, round(tc.auxhist_interval_s / self.dt)) \
+            if (output_dir and tc.auxhist_interval_s > 0) else 0
         self.rad_every = max(1, round(ph.radt_s / self.dt)) \
             if ph.ra_sw_physics.value != "none" or ph.ra_lw_physics.value != "none" else 0
         self.chem_every = max(1, round(cfg.chem.chemdt_s / self.dt)) \
             if cfg.chem.chem_opt.value != "none" else 0
         self._steppers: Dict[str, Callable] = {}
+        self._init_ts()
 
     def _solar_time(self, t_s: np.float32):
         """(UTC seconds, julian day) of model time `t_s`, in float32 in the
@@ -77,8 +122,9 @@ class Simulation:
         return ts, np.float32(self._julian) + ts / np.float32(86400.0)
 
     def _stepper(self, key: str) -> Callable:
-        """The (state, grid, t_s) -> state function of one executable;
-        `t_s` is the model time as a numpy float32."""
+        """The (state, grid, t_s) -> state function of one executable
+        (``chem_stream`` takes the emissions as a fourth argument); `t_s` is
+        the model time as a numpy float32."""
         if key not in self._steppers:
             cfg, hx, dt = self.cfg, self.hx, self.dt
             if key == "main":
@@ -90,13 +136,17 @@ class Simulation:
                 def fn(s, g, t_s):
                     ts, jd = self._solar_time(t_s)
                     return radiation_driver(s, g, cfg, ts, julian_day=jd)
-            elif key == "chem":
-                emissions = self.emissions
-
-                def fn(s, g, t_s):
+            elif key == "chem_stream":
+                def fn(s, g, t_s, emissions):
                     ts, jd = self._solar_time(t_s)
                     return chem_driver(s, g, cfg, cfg.chem.chemdt_s, time_s=ts,
                                        emissions=emissions, julian_day=jd)
+            elif key == "chem":
+                with_emissions = self._stepper("chem_stream")
+                emissions = self.emissions
+
+                def fn(s, g, t_s):
+                    return with_emissions(s, g, t_s, emissions)
             else:
                 raise ValueError(key)
             self._steppers[key] = fn
@@ -106,17 +156,154 @@ class Simulation:
         """Block until every queued step has executed (window barrier)."""
         sync(self.device)
 
-    def advance(self, n_steps: int):
-        """Advance n steps.  On the GPU the steps are queued asynchronously;
-        close a timed window with `sync()`."""
+    def advance(self, n_steps: int,
+                on_step: Optional[Callable[["Simulation"], None]] = None,
+                phase_timing: bool = False):
+        """Advance n steps; call `on_step(self)` after each.  On the GPU the
+        steps are queued asynchronously, and `step_times` holds the host's
+        enqueue time unless `phase_timing` is set: then every phase (chem,
+        rad, main) ends in a device synchronisation and its time adds to
+        `self.phase_times`.  The reference fetches one element of a field
+        the phase writes for this; on CUDA one synchronisation closes every
+        queued phase, whatever it wrote."""
+        if phase_timing and not hasattr(self, "phase_times"):
+            self.phase_times = {"chem": 0.0, "rad": 0.0, "main": 0.0}
         for _ in range(n_steps):
             do_rad = self.rad_every > 0 and self.step_idx % self.rad_every == 0
             do_chem = self.chem_every > 0 and self.step_idx % self.chem_every == 0
+            t_start = t0 = time.perf_counter()
             t_now = np.float32(self.time_s)
             if do_chem:
-                self.state = self._stepper("chem")(self.state, self.grid, t_now)
+                if self._stream_snaps is not None:
+                    emis = self._stream_snaps[self.emissions.index_at(self.time_s)]
+                    self.state = self._stepper("chem_stream")(self.state, self.grid,
+                                                              t_now, emis)
+                else:
+                    self.state = self._stepper("chem")(self.state, self.grid, t_now)
+                if phase_timing:
+                    t0 = self._close_phase("chem", t0)
             if do_rad:
                 self.state = self._stepper("rad")(self.state, self.grid, t_now)
+                if phase_timing:
+                    t0 = self._close_phase("rad", t0)
             self.state = self._stepper("main")(self.state, self.grid, t_now)
+            if phase_timing:
+                self._close_phase("main", t0)
+            elapsed = time.perf_counter() - t_start
+            self.step_times.append(elapsed)
             self.step_idx += 1
             self.time_s += self.dt
+            if self.check_nans and not bool(torch.isfinite(self.state["t"]).all()):
+                raise FloatingPointError(
+                    f"NaN in theta at step {self.step_idx} (t={self.time_s}s)")
+            log(f"Timing for main: time {self.clock.timestamp(self.time_s)} "
+                f"on domain 1: {elapsed:.5f} elapsed seconds", level=2)
+            if self._ts_points:
+                self._record_ts()
+            self._write_output()
+            if on_step is not None:
+                on_step(self)
+
+    def _close_phase(self, phase: str, t0: float) -> float:
+        self.sync()
+        t1 = time.perf_counter()
+        self.phase_times[phase] += t1 - t0
+        return t1
+
+    def _write_output(self):
+        """The history, restart and auxhist alarms of the step just taken."""
+        n, out = self.step_idx, self.output_dir
+        if self.hist_every and n % self.hist_every == 0:
+            hio.write_history(f"{out}/hist_{n:06d}{hio.default_extension()}", self.cfg, self.grid,
+                              self.state, self.time_s)
+        if self.rst_every and n % self.rst_every == 0:
+            hio.write_restart(f"{out}/restart_{n:06d}{hio.default_extension()}", self.cfg, self.state,
+                              n, self.time_s)
+        if self.aux_every and n % self.aux_every == 0:
+            diags.write_diags(f"{out}/auxdiag_{n:06d}{hio.default_extension()}", self.cfg, self.grid,
+                              self.state, self.time_s)
+
+    # -- tslist: per-step surface series at registered (label, j, i) points
+
+    def _init_ts(self):
+        """The points' indices on the device and the base column mass at
+        each on the host.  Each step gathers the points' values into one
+        small device tensor; the host reads them only when `ts_series` is
+        read or written."""
+        self._ts_points = tuple(self.cfg.time_control.ts_points)
+        self._ts_rows: Dict[str, list] = {label: [] for label, _, _ in self._ts_points}
+        self._ts_pending: list = []
+        if not self._ts_points:
+            return
+        jj = [j for _, j, _ in self._ts_points]
+        ii = [i for _, _, i in self._ts_points]
+        self._ts_j = torch.tensor(jj, device=self.device)
+        self._ts_i = torch.tensor(ii, device=self.device)
+        mub = self.grid.mub.cpu().numpy()
+        self._ts_mub = [float(mub[j, i]) for j, i in zip(jj, ii)]
+        # gathered per point: these fields at the surface (rainnc and qv
+        # where the state has them), then |w| max over the column
+        self._ts_fields = ("t", "u", "v", "mu") + tuple(
+            k for k in ("rainnc", "qv") if k in self.state)
+
+    def _record_ts(self):
+        s = self.state
+        planes = [s[k][0] if s[k].dim() == 3 else s[k] for k in self._ts_fields]
+        j, i = self._ts_j, self._ts_i
+        vals = torch.cat([torch.stack(planes)[:, j, i],
+                          s["w"][:, j, i].abs().amax(0, keepdim=True)])
+        self._ts_pending.append((self.time_s, vals))
+        if len(self._ts_pending) >= _TS_PENDING_MAX:
+            self._ts_materialise()
+
+    def _ts_materialise(self):
+        """Turn the pending device values into the reference's rows (one
+        dict per point and step) in one host copy."""
+        if not self._ts_pending:
+            return
+        vals = torch.stack([v for _, v in self._ts_pending]).cpu().numpy()
+        p_top = self.grid.p_top
+        for (time_s, _), v in zip(self._ts_pending, vals):
+            for p, (label, _, _) in enumerate(self._ts_points):
+                x = dict(zip(self._ts_fields, v[:-1, p]))
+                row = {
+                    "time_s": time_s,
+                    "t_sfc": float(x["t"]) + 300.0,
+                    "u_sfc": float(x["u"]),
+                    "v_sfc": float(x["v"]),
+                    "w_max": float(v[-1, p]),
+                    "psfc": float(x["mu"]) + self._ts_mub[p] + p_top,
+                    "rainnc": float(x["rainnc"]) if "rainnc" in x else 0.0,
+                }
+                if "qv" in x:
+                    row["qv_sfc"] = float(x["qv"])
+                self._ts_rows[label].append(row)
+        self._ts_pending = []
+
+    @property
+    def ts_series(self) -> Dict[str, list]:
+        """{label: [row per step]}, each row a dict of time_s, t_sfc, u_sfc,
+        v_sfc, w_max, psfc, rainnc and (with moisture) qv_sfc."""
+        self._ts_materialise()
+        return self._ts_rows
+
+    def write_tslist(self, out_dir: str):
+        """Write each registered point's series as <label>.TS (one header
+        and one line per step)."""
+        os.makedirs(out_dir, exist_ok=True)
+        for label, rows in self.ts_series.items():
+            path = os.path.join(out_dir, f"{label}.TS")
+            with open(path, "w") as f:
+                if rows:
+                    cols = list(rows[0].keys())
+                    f.write(" ".join(cols) + "\n")
+                    for r in rows:
+                        f.write(" ".join(f"{r[c]:.6g}" for c in cols) + "\n")
+        return [os.path.join(out_dir, f"{k}.TS") for k in self.ts_series]
+
+    def run_seconds(self, seconds: float, **kw):
+        self.advance(int(round(seconds / self.dt)), **kw)
+
+    def mean_step_time(self, skip: int = 2) -> float:
+        ts = self.step_times[skip:] if len(self.step_times) > skip else self.step_times
+        return float(np.mean(ts)) if ts else float("nan")

@@ -52,6 +52,14 @@ class HaloOps:
         exchange; on one device there is no exchange to fuse)."""
         return {name: self.pad(a, width) for name, a in fields.items()}
 
+    # global reductions (diagnostics, CFL guards): on one device the local
+    # value is the global one; a device mesh makes them collectives
+    def psum(self, x):
+        return x
+
+    def pmax(self, x):
+        return x
+
 
 def overlap_stencil(hx: HaloOps, fields: Dict[str, torch.Tensor], width: int,
                     fn: Callable, consts: Optional[Dict[str, torch.Tensor]] = None):

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from wrfchem_arc_interactions_tpu_torch.config import Config
-from wrfchem_arc_interactions_tpu_torch.registry.fields import field_table
+from wrfchem_arc_interactions_tpu_torch.registry.fields import FieldSpec, field_table
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike
 
 State = Dict[str, torch.Tensor]
@@ -24,9 +24,42 @@ def build_state(cfg: Config, device: DeviceLike,
             for spec in field_table(cfg)}
 
 
+def spec_index(cfg: Config) -> Dict[str, FieldSpec]:
+    return {s.name: s for s in field_table(cfg)}
+
+
+def restart_names(cfg: Config) -> Tuple[str, ...]:
+    """Fields of the exact-restart set (the Registry `r` flag)."""
+    return tuple(s.name for s in field_table(cfg) if s.restart)
+
+
+def history_names(cfg: Config) -> Tuple[str, ...]:
+    """Fields of the history stream (the Registry `h` flag)."""
+    return tuple(s.name for s in field_table(cfg) if s.history)
+
+
 def advected_names(cfg: Config) -> Tuple[str, ...]:
     """Scalar-advection set, in table order."""
     return tuple(s.name for s in field_table(cfg) if s.advected)
+
+
+def halo_width(cfg: Config) -> int:
+    return max((s.halo for s in field_table(cfg)), default=0)
+
+
+def validate_state(cfg: Config, state: State) -> None:
+    """Shape-check a state dict against the registry (debug aid)."""
+    d = cfg.domain
+    table = spec_index(cfg)
+    missing = set(table) - set(state)
+    extra = set(state) - set(table)
+    if missing or extra:
+        raise ValueError(f"state/table mismatch: missing={sorted(missing)} extra={sorted(extra)}")
+    for name, spec in table.items():
+        want = spec.shape(d.nz, d.ny, d.nx)
+        got = tuple(state[name].shape)
+        if want != got:
+            raise ValueError(f"{name}: shape {got}, registry expects {want}")
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike) -> State:

@@ -1,15 +1,16 @@
-"""Calendar clock of the run loop (port of the part of the JAX package's
-`utils/clock.py` that `models.driver.Simulation` uses).
+"""Calendar clock of the run loop (port of the JAX package's
+`utils/clock.py`).
 
 Model code works on ``time_s``, seconds since the run start; the clock
-converts the configured start date into the two calendar quantities the
-solar ephemeris needs: the julian day of the start and the UTC seconds of
-the day at the start.  Alarms, timestamps and history names come with the
-run infrastructure (ROADMAP Queue 1 item 8).
+converts the configured start date into calendar quantities: WRF-format
+timestamps for the log, the julian day of the start and the UTC seconds of
+the day at the start for the solar ephemeris.  `Alarm` has the ring
+semantics of an ESMF interval alarm.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime as _dt
 
 WRF_FMT = "%Y-%m-%d_%H:%M:%S"
@@ -20,6 +21,31 @@ def parse_wrf_time(s: str) -> _dt.datetime:
     return _dt.datetime.strptime(s, WRF_FMT)
 
 
+def format_wrf_time(t: _dt.datetime) -> str:
+    return t.strftime(WRF_FMT)
+
+
+@dataclasses.dataclass
+class Alarm:
+    """Interval alarm: rings whenever model time crosses a multiple of
+    ``interval_s`` past ``offset_s`` (a zero or negative interval never
+    rings)."""
+
+    interval_s: float
+    offset_s: float = 0.0
+    _last_ring: float = dataclasses.field(default=-1.0, repr=False)
+
+    def is_ringing(self, time_s: float) -> bool:
+        if self.interval_s <= 0.0:
+            return False
+        k = int((time_s - self.offset_s + 1e-6) // self.interval_s)
+        ring_t = self.offset_s + k * self.interval_s
+        if time_s + 1e-6 >= ring_t > self._last_ring:
+            self._last_ring = ring_t
+            return True
+        return False
+
+
 class ModelClock:
     """Run clock anchored at a calendar start date."""
 
@@ -28,6 +54,10 @@ class ModelClock:
 
     def datetime_at(self, time_s: float) -> _dt.datetime:
         return self.start + _dt.timedelta(seconds=float(time_s))
+
+    def timestamp(self, time_s: float) -> str:
+        """WRF-format time of model time `time_s`."""
+        return format_wrf_time(self.datetime_at(time_s))
 
     def julian_day(self, time_s: float = 0.0) -> float:
         t = self.datetime_at(time_s)
