@@ -10,13 +10,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    kernel, whose source ``ops/ros2_kernel.py`` generates from the CBM-Z
    tables into ``build/`` (one nvcc per source, all at once);
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the shapes the main paths give it (the Mie evaluator on random and on
-   warp-coherent inputs; the multi-tracer kernel at config 3's 47 and config
-   4's 107 scalars, and at small shapes that stress its tile and its ring of
-   planes on all three boundary kinds, with rows of 1,000 cells in x tiles
-   held bitwise; the ROS2 kernel against its plain version at config 4's
-   500,000 cells and at 4,133 cells), timed with CUDA events, beside its
-   bound, with each library's build flags;
+   at the shapes the main paths give it (the scalar advection kernel flat
+   and with slice 9's map factor m2, bitwise; the Mie evaluator on random
+   and on warp-coherent inputs; the multi-tracer kernel at config 3's 47
+   and config 4's 107 scalars, and at 107 with slice 9's m2, bitwise, and
+   at small shapes that stress its tile and its ring of planes on all four
+   boundary kinds, specified among them, flat and with a map factor, with
+   rows of 1,000 cells in x tiles held bitwise; the ROS2 kernel against its
+   plain version at config 4's 500,000 cells and at 4,133 cells), timed
+   with CUDA events, beside its bound, with each library's build flags;
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -49,7 +51,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    times, a profile of one chem call, and the Mie kernel on that call's own
    inputs (distinct floor cells per warp, device time per bin, within
    3.2e-4 of its plain version);
-9. slice-8 phase, this slice's main path: config 4 run as a user runs it
+9. slice-8 phase: config 4 run as a user runs it
    (`_cfg8`): one `Simulation` with an output directory (history and
    restart every 300 s, auxhist every 600 s, all netCDF through the
    port's g++-built backend, which must build), the NaN check, an emission
@@ -90,7 +92,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    slice-7 configuration at 16x8x20; the LES case with the TKE closure and
    WENO5; SPPT and SKEBS; MYNN over the slab surface; BMJ, KF and Grell with
    WSM6 at dx = 10 km; the simple radiation;
-15. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
+15. slice-9 phase, this slice's main path: config 4's physics and
+   chemistry on a real-data domain (`_cfg9`): real_init of the synthetic
+   analysis at 0, 3,600 and 7,200 s on a Lambert grid at 40N over a
+   1,000 m ridge, 100x100x50 at dx 12 km and dt 60 s from noon UTC,
+   specified lateral boundaries from the two segments, bench.py's seed; 2
+   warm-up steps, then one 100-step window (6,000 s, 10 chem and 10 rad
+   calls) across the segment swap at 3,600 s, with exact launches (300 /
+   400 / 40 / 10), finite fields, no negative moist or chem field, |w|
+   bounded and each spec ring equal to the segment's target; the setup's
+   host seconds, the synchronised phase times, a profile of one main step,
+   and the scalar advection and multi-tracer kernels with m2 bitwise on one
+   main step's calls;
+16. item-9 cross-checks, card against CPU at small sizes: a real case with
+   analysis nudging, hill2d_x, a lat-lon grid with the polar filter, a
+   one-way and a two-way 3:1 nest (with a move), ndown from two history
+   files written on the card;
+17. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
    of the multi-tracer kernel): that kernel timed at 47 scalars on the
    grid, 3 steps with one rad and one chem call and exact launches, and
    the rad call's peak memory.
@@ -103,6 +121,7 @@ code 1 and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import statistics
 import subprocess
@@ -239,6 +258,56 @@ def _cfg7(nx=100, ny=100, nz=50, chem_s=60.0, rad_s=600.0,
             sf_sfclay_physics=SFScheme.REVISED_MM5, sf_surface_physics=SFSurface.NOAH))
 
 
+def _cfg9(nx=100, ny=100, nz=50, chem_s=600.0, rad_s=600.0,
+          start_date="2000-06-20_12:00:00"):
+    """Slice 9's path: config 4's physics and chemistry (`_cfg4`) on a
+    real-data domain: dx = dy = 12 km, dt = 60 s, ztop 16 km, p_top 100 hPa,
+    kvdif 0, specified lateral boundaries on both axes (spec zone 1, relax
+    zone 4), chem and rad every 600 s, from noon UTC; 6 acoustic substeps
+    a step and off-centering epssm 0.3.  With the defaults (4 and 0.1) the
+    case goes non-finite within 102 steps in both packages: at the model
+    top near the boundaries by step ~50 with 4 substeps, in the north
+    relax zone at mid levels from step ~80 with epssm 0.1 (PERF.md §6)."""
+    import dataclasses
+    from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
+    cfg = _cfg4(nx, ny, nz, chem_s, rad_s, start_date)
+    return cfg.replace(
+        domain=dataclasses.replace(cfg.domain, dx=12e3, dy=12e3, ztop=16000.0, p_top=10000.0),
+        time_control=dataclasses.replace(cfg.time_control, dt=60.0),
+        dynamics=dataclasses.replace(cfg.dynamics, kvdif=0.0, bc_x=BCKind.SPECIFIED,
+                                     bc_y=BCKind.SPECIFIED, spec_zone=1, relax_zone=4,
+                                     time_step_sound=6, epssm=0.3))
+
+
+# slice 9's Lambert projection, and its analyses' times [s] (two segments)
+LAMBERT9 = {"kind": "lambert", "ref_lat": 40.0}
+SNAPS9 = (0.0, 3600.0, 7200.0)
+
+
+def _real_case(cfg, dev, times=SNAPS9, terrain_amp=1000.0, projection=None):
+    """real_init on the synthetic analysis at `times` over a ridge of
+    `terrain_amp`, on slice 9's Lambert projection by default: (grid,
+    state, segments)."""
+    from wrfchem_arc_interactions_tpu_torch.grid.projection import Projection
+    from wrfchem_arc_interactions_tpu_torch.models import real
+    snaps = real.synthetic_analysis(cfg, times, terrain_amp=terrain_amp)
+    return real.real_init(cfg, snaps, device=dev,
+                          projection=Projection(**(projection or LAMBERT9)))
+
+
+def _projected9(grid):
+    """`grid` with slice 9's map factors (the Lambert projection at 40N, dx
+    12 km) on its (ny, nx): the kernel phase's map factor at slice 9's
+    shapes."""
+    import dataclasses
+    from wrfchem_arc_interactions_tpu_torch.grid.projection import (
+        Projection, projection_fields,
+    )
+    pf = projection_fields(Projection(**LAMBERT9), grid.ny, grid.nx, 12e3, 12e3)
+    return dataclasses.replace(grid, msft=torch.from_numpy(pf["msft"]).to(grid.device),
+                               curvature=True)
+
+
 def _cfg_small(nx, ny, nz, dx, dt, ztop, p_top, dynamics=None, physics=None):
     """A small configuration of the options the cross-checks hold; enum
     values given by name."""
@@ -373,14 +442,15 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _adv_bound(nz, ny, nx):
+def _adv_bound(nz, ny, nx, msf=False):
     """advect_scalar_5_3: each input read once, the output written once;
     ops per face: flux5 20, flux3 16 (with the two sign flips); per cell 9
-    for the divergence."""
+    for the divergence; with the map factor its (ny, nx) plane read once
+    and one multiply a cell."""
     nbytes = 4 * (3 * nz * (ny + 6) * (nx + 6) + (nz + 1) * ny * nx + nz
-                  + nz * ny * nx)
+                  + nz * ny * nx + (ny * nx if msf else 0))
     ops = (20 * (nz * ny * (nx + 1) + nz * (ny + 1) * nx)
-           + 16 * (nz - 1) * ny * nx + 9 * nz * ny * nx)
+           + 16 * (nz - 1) * ny * nx + (10 if msf else 9) * nz * ny * nx)
     return _bound(nbytes, ops)
 
 
@@ -400,18 +470,23 @@ def _mie_bound(n):
 # counted once: 3 face fluxes (flux5 20, flux5 20, flux3 16), divergence 9,
 # tendency 2, update 3; the limiter adds the low-order fluxes (8), two
 # factors (~25 each), the renormalisation (6), phi_td (12), the
-# antidiffusive fluxes (3), the limited fluxes (9) and the clip (1)
+# antidiffusive fluxes (3), the limited fluxes (9) and the clip (1).  The
+# map factor adds a multiply to each divergence and factor: 1 without the
+# limiter, 4 with it (the final divergence, phi_td's, and two factors)
 TRACER_OPS = {False: 70, True: 160}
+TRACER_MSF_OPS = {False: 1, True: 4}
 
 
-def _tracers_bound(nt, nz, ny, nx, pd):
+def _tracers_bound(nt, nz, ny, nx, pd, msf=False):
     """advect_tracers: q (padded), phi_old, pt, ru, rv (padded), ww,
-    mu_full, mu_new, rdnw read once, q_new written once."""
+    mu_full, mu_new, rdnw (and m2 on a projected grid) read once, q_new
+    written once."""
     cells = nz * ny * nx
     padded = nz * (ny + 6) * (nx + 6)
     nbytes = 4 * (nt * padded + 3 * nt * cells + 2 * padded + (nz + 1) * ny * nx
-                  + 2 * ny * nx + nz)
-    return _bound(nbytes, TRACER_OPS[pd] * nt * cells)
+                  + (3 if msf else 2) * ny * nx + nz)
+    ops = (TRACER_OPS[pd] + (TRACER_MSF_OPS[pd] if msf else 0)) * nt * cells
+    return _bound(nbytes, ops)
 
 
 def _entry(name, launches, max_abs, ms, plain_ms, bound, source=None):
@@ -437,9 +512,12 @@ def _adv_plan(nz, ny, nx) -> dict:
     return adv_kernel.plan(build.load("advect_scalar_5_3"), nz, ny, nx, sms)
 
 
-def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx):
+def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx, m2=None):
+    """The scalar advection kernel against its plain version and timed, on a
+    flat grid or with the map factor `m2` (ny, nx): its entry."""
     from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel
     rng = np.random.default_rng(0)
+    label = "flat" if m2 is None else "with m2"
 
     def put(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -451,7 +529,7 @@ def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx):
     ww[0] = 0.0
     ww[-1] = 0.0
     ww = put(ww)
-    args = (q, ru, rv, ww, rdnw, rdx, rdy)
+    args = (q, ru, rv, ww, rdnw, rdx, rdy, m2)
     out = adv_kernel.advect_scalar_5_3(*args)
     ref = adv_kernel.advect_scalar_5_3_reference(*args)
     torch.cuda.synchronize()
@@ -459,18 +537,20 @@ def kernel_adv(dev, rdnw, rdx, rdy, nz, ny, nx):
         raise RuntimeError("advect_scalar_5_3: non-finite output")
     max_abs = float((out - ref).abs().max())
     rel = max_abs / float(ref.abs().max())
-    print(f"advect_scalar_5_3 (kernel) vs plain on the card: max|d| = {max_abs:.6g}, "
-          f"max|d|/max|ref| = {rel:.3g} (limit 1e-5), bitwise equal "
-          f"{bool(torch.equal(out, ref))}; {_flags('advect_scalar_5_3')}; grid "
-          f"{_adv_plan(nz, ny, nx)}")
+    equal = bool(torch.equal(out, ref))
+    print(f"advect_scalar_5_3 (kernel) vs plain on the card, {label}: max|d| = "
+          f"{max_abs:.6g}, max|d|/max|ref| = {rel:.3g} (limit 1e-5), bitwise equal "
+          f"{equal}; {_flags('advect_scalar_5_3')}; grid {_adv_plan(nz, ny, nx)}")
     if not rel <= 1e-5:
         raise RuntimeError(f"advect_scalar_5_3 disagrees with its plain version: {rel}")
+    if m2 is not None and not equal:
+        raise RuntimeError("advect_scalar_5_3 with m2 is not bitwise its plain version")
     ms = _device_ms(lambda: adv_kernel.advect_scalar_5_3(*args), calls=20)
     plain_ms = _device_ms(lambda: adv_kernel.advect_scalar_5_3_reference(*args), calls=4)
     wall_ms = _wall_ms(lambda: adv_kernel.advect_scalar_5_3(*args), reps=50)
     plain_wall_ms = _wall_ms(lambda: adv_kernel.advect_scalar_5_3_reference(*args))
-    bound = _adv_bound(nz, ny, nx)
-    print(f"advect_scalar_5_3 at ({nz}, {ny + 6}, {nx + 6}), device time per call: "
+    bound = _adv_bound(nz, ny, nx, msf=m2 is not None)
+    print(f"advect_scalar_5_3 {label} at ({nz}, {ny + 6}, {nx + 6}), device time per call: "
           f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
           f"{bound[0] * 1e3:.2f} us ({bound[1]}, {100.0 * bound[0] / ms:.1f}% of it); "
           f"host wall per synchronised call: kernel {wall_ms * 1e3:.2f} us, plain "
@@ -714,6 +794,8 @@ def kernel_tracers(dev, grid, nt):
     from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
     nz, ny, nx = grid.nz, grid.ny, grid.nx
     args, pt, qmax = tracer_inputs(dev, grid, nt)
+    msf = grid.has_msf
+    label = "with m2" if msf else "flat"
     modes = {}
     for pd in (False, True):
         kw = dict(pt=pt, pd=pd, clip=pd)
@@ -723,19 +805,22 @@ def kernel_tracers(dev, grid, nt):
         if not torch.isfinite(out).all():
             raise RuntimeError("advect_tracers: non-finite output")
         max_abs = float((out - ref).abs().max())
-        print(f"advect_tracers (kernel) vs plain on the card, nt={nt}, pd={pd}: "
+        equal = bool(torch.equal(out, ref))
+        print(f"advect_tracers (kernel) vs plain on the card, {label}, nt={nt}, pd={pd}: "
               f"max|d| = {max_abs:.6g}, max|d|/max|q| = {max_abs / qmax:.3g} "
-              f"(limit 1e-5; built with --fmad=false)")
+              f"(limit 1e-5; built with --fmad=false), bitwise equal {equal}")
         if not max_abs / qmax <= 1e-5:
             raise RuntimeError(f"advect_tracers disagrees with its plain version: {max_abs}")
+        if msf and not equal:
+            raise RuntimeError("advect_tracers with m2 is not bitwise its plain version")
         del out, ref
         ms = _device_ms(lambda: tracers_kernel.advect_tracers(*args, **kw),
                         calls=10, trials=20)
         plain_ms = _device_ms(lambda: tracers_kernel.advect_tracers_reference(*args, **kw),
                               calls=1, trials=5, warmup=1)
         wall_ms = _wall_ms(lambda: tracers_kernel.advect_tracers(*args, **kw))
-        bound = _tracers_bound(nt, nz, ny, nx, pd)
-        print(f"advect_tracers at ({nt}, {nz}, {ny}, {nx}), pd={pd}, device time per "
+        bound = _tracers_bound(nt, nz, ny, nx, pd, msf)
+        print(f"advect_tracers {label} at ({nt}, {nz}, {ny}, {nx}), pd={pd}, device time per "
               f"call: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]}, {100.0 * bound[0] / ms:.1f}% of it); host wall per "
               f"synchronised call: kernel {wall_ms:.4f} ms")
@@ -748,10 +833,10 @@ def kernel_tracers(dev, grid, nt):
 def tracers_entry(modes, others):
     """The multi-tracer kernel's entry.  A main path calls it twice without
     the limiter and once with it per step: the entry carries the mean per
-    call over that mix at the main path's (slice 6's) 219 scalars (its
-    "launches" count grids: one per call without the limiter, two with it);
-    `modes` holds both settings at nt = 219, and `others` ({key: modes})
-    those of the other paths' shapes."""
+    call over that mix at the main path's (slice 9's) 107 scalars with the
+    map factor (its "launches" count grids: one per call without the
+    limiter, two with it); `modes` holds both settings there, and `others`
+    ({key: modes}) those of the other paths' shapes."""
     a, b = modes["no_limiter"], modes["pd_clip"]
     mean = {k: (2.0 * a[k] + b[k]) / 3.0 for k in ("ms", "plain_ms", "bound_ms")}
     entry = _entry("advect_tracers", None,
@@ -862,21 +947,23 @@ WIDE_ROW = 1000
 
 
 def tracer_boundary_cases():
-    """(nz, ny, nx, bc_x, bc_y) over `TRACER_SHAPES` and the three lateral
+    """(nz, ny, nx, bc_x, bc_y) over `TRACER_SHAPES` and the four lateral
     boundary kinds.  A boundary's halo of 3 needs 3 rows (periodic) or 4
     (symmetric); a single row is open in y and takes each kind in x."""
     cases = []
     for nz, ny, nx in TRACER_SHAPES:
-        for bc in ("open", "symmetric", "periodic"):
-            need = {"open": 1, "periodic": 3, "symmetric": 4}[bc]
+        for bc in ("open", "symmetric", "periodic", "specified"):
+            need = {"open": 1, "specified": 1, "periodic": 3, "symmetric": 4}[bc]
             cases.append((nz, ny, nx, bc, bc if ny >= need else "open"))
     return cases
 
 
 def _tracers_boundaries(dev, grid, nt=3):
     """The kernel against its plain version at `tracer_boundary_cases`, with
-    and without the limiter (the main paths are periodic, 100 x 100 x 50):
-    the limiter reads neighbour factors through each boundary's index map."""
+    and without the limiter, flat and with a map factor (of 0.95-1.05, in
+    every cell another): the limiter reads neighbour factors through each
+    boundary's index map, and the factors' outflows and the divergences
+    read the map factor of the right cell."""
     import dataclasses
     from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
     from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
@@ -884,8 +971,12 @@ def _tracers_boundaries(dev, grid, nt=3):
     gen = torch.Generator(device="cpu").manual_seed(3)
     worst, bitwise = 0.0, 0
     cases = tracer_boundary_cases()
-    for nz, ny, nx, bc_x, bc_y in cases:
+    for (nz, ny, nx, bc_x, bc_y), msf in ((c, m) for c in cases for m in (False, True)):
         g = dataclasses.replace(grid, rdnw=grid.rdnw[:nz].contiguous())
+        if msf:
+            g = dataclasses.replace(
+                g, msft=(0.95 + 0.1 * torch.rand((ny, nx), generator=gen)).to(dev),
+                curvature=True)
         mub = float(grid.mub.mean()) * (0.995 + 0.01 * torch.rand((ny, nx), generator=gen))
         q = 2.0 * torch.rand((nt, nz, ny, nx), generator=gen) \
             * (torch.rand((nt, nz, ny, nx), generator=gen) > 0.5)
@@ -905,15 +996,16 @@ def _tracers_boundaries(dev, grid, nt=3):
             torch.cuda.synchronize()
             err = float((out - ref).abs().max() / q.abs().max())
             worst = max(worst, err)
-            if not err <= 1e-5 or (nx >= WIDE_ROW and not torch.equal(out, ref)):
+            if not err <= 1e-5 or ((nx >= WIDE_ROW or msf) and not torch.equal(out, ref)):
                 raise RuntimeError(f"advect_tracers at (nt, nz, ny, nx) = {(nt, nz, ny, nx)}, "
-                                   f"x {bc_x}, y {bc_y}, limiter {pd} disagrees with its "
-                                   f"plain version: {err}")
+                                   f"x {bc_x}, y {bc_y}, limiter {pd}, map factor {msf} "
+                                   f"disagrees with its plain version: {err}")
             bitwise += int(torch.equal(out, ref))
     print(f"advect_tracers (kernel) vs plain with and without the limiter at {len(cases)} "
           f"shapes and boundary kinds (nz 1-50, ny 1-17, nx 13, 33, 300 and {WIDE_ROW}, the "
-          f"last in x tiles; open, symmetric, periodic): max|d|/max|q| = {worst:.3g} (limit "
-          f"1e-5; rows of {WIDE_ROW} bitwise), {bitwise} of {2 * len(cases)} calls bitwise "
+          f"last in x tiles; open, symmetric, periodic, specified), flat and with a map "
+          f"factor: max|d|/max|q| = {worst:.3g} (limit 1e-5; rows of {WIDE_ROW} and every "
+          f"call with a map factor bitwise), {bitwise} of {4 * len(cases)} calls bitwise "
           f"equal; one tile spans {tracers_kernel.widest_row(False)} cells without the "
           f"limiter, {tracers_kernel.widest_row(True)} with it")
 
@@ -1740,6 +1832,264 @@ def item7_cross_checks(dev):
                 lambda st: st, "the simple radiation")
 
 
+FORCED9 = ("u", "v", "w", "t", "mu", "ph", "qv")
+
+
+def _ring_at_target(state, target, label):
+    """Each forced field's outer ring equals the boundary target exactly,
+    as `SpecifiedBC.apply` sets it."""
+    for k in FORCED9:
+        a, b = state[k], target[k]
+        for sl in (np.s_[..., 0, :], np.s_[..., -1, :], np.s_[..., :, 0], np.s_[..., :, -1]):
+            if not torch.equal(a[sl], b[sl]):
+                raise RuntimeError(f"{label}: the spec ring of {k} is not the boundary target "
+                                   f"(max|d| {float((a[sl] - b[sl]).abs().max())})")
+
+
+def slice9_phase(dev, card, steps=RAD_CHEM_EVERY):
+    """Slice 9's path, the main path: config 4's physics and chemistry on a
+    real-data domain (`_cfg9`: real_init of the synthetic analysis at 0,
+    3600 and 7200 s on a Lambert grid at 40N over a 1,000 m ridge,
+    100x100x50, dx 12 km, dt 60 s, specified boundaries from the two
+    segments, bench.py's seed), 2 warm-up steps, then one 100-step window
+    (6,000 s) across the segment swap at 3,600 s, with the exact launches
+    (300 / 400 / 40 / 10), finite fields, no negative moist or chem field,
+    |w| bounded and the spec ring at the target; the synchronised phase
+    times, a profile of one main step, and the scalar advection and
+    multi-tracer kernels with m2 bitwise on one main step's own calls.
+    Returns (launches, numbers)."""
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
+    cfg = _cfg9()
+    t0 = time.perf_counter()
+    grid, state, segs = _real_case(cfg, dev)
+    setup_s = time.perf_counter() - t0
+    state = _seed4(state)
+    sim = Simulation(cfg, grid, state, boundary=segs[0], device=dev)
+    nt = len(advected_names(cfg))
+    m = sim.grid.msft
+    d = cfg.domain
+    print(f"slice 9: real_init of 3 analyses at {d.nx}x{d.ny}x{d.nz} (Lambert at 40N, 1,000 m "
+          f"ridge, map factor {float(m.min()):.4f}-{float(m.max()):.4f}, terrain "
+          f"{float(sim.grid.ht.max()):.1f} m) in {setup_s:.2f} s of host time; {nt} advected "
+          f"scalars, {len(segs)} boundary segments")
+    if not (nt == 107 and sim.rad_every == sim.chem_every == 10 and len(segs) == 2
+            and sim.grid.has_terrain and sim.grid.curvature):
+        raise RuntimeError(f"slice 9: {nt} scalars, rad every {sim.rad_every}, chem every "
+                           f"{sim.chem_every}, {len(segs)} segments; expected 107, 10, 10, 2")
+    sim.advance(2)                  # warm-up: both alarms ring at step 0
+    sim.sync()
+    _reset_counts()
+    swap_step = None
+    t0 = time.perf_counter()
+    for _ in range(steps):          # steps 2..101: chem and rad at 10, 20, .., 100
+        if swap_step is None and sim.time_s >= segs[0].t_hi:
+            sim.boundary = segs[1]
+            swap_step = sim.step_idx
+        sim.advance(1)
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    if swap_step != 60:
+        raise RuntimeError(f"slice 9: the segment swap came at step {swap_step}, expected 60 "
+                           "(3,600 s)")
+    s = sim.state
+    for k, v in s.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"slice 9: non-finite {k} after {steps + 2} steps")
+    neg = [k for k in list(cfg.moist_species()) + [k for k in s if k.startswith("chem_")]
+           if float(s[k].min()) < 0.0]
+    if neg:
+        raise RuntimeError(f"slice 9: negative fields {neg}")
+    w_max = float(s["w"].abs().max())
+    if not 1e-3 < w_max < 20.0:
+        raise RuntimeError(f"slice 9: max |w| = {w_max} m/s outside (1e-3, 20)")
+    _ring_at_target(s, segs[1].at_time(np.float32(sim.time_s - sim.dt)), "slice 9")
+    n_chem = steps // sim.chem_every
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
+            "mie_cheb_eval": 4 * n_chem, "ros2_integrate": n_chem}
+    if launches != want:
+        raise RuntimeError(f"slice 9: kernel launches in the {steps}-step window {launches}, "
+                           f"expected {want}")
+    ms_step = wall / steps * 1e3
+    print(f"slice 9: {steps} steps of {d.nx}x{d.ny}x{d.nz} after 2 warm-up steps ({n_chem} chem "
+          f"and {steps // sim.rad_every} rad calls; segment swap at step {swap_step}): "
+          f"{ms_step:.3f} ms/step, {d.nx * d.ny * d.nz / (wall / steps) / 1e6:.4f} M "
+          f"gridpoints/s [{card}]; max |w| {w_max:.3f} m/s, max qc {float(s['qc'].max()):.3e}, "
+          f"theta' {float(s['t'].min()):.2f}-{float(s['t'].max()):.2f} K, swdown max "
+          f"{float(s['swdown'].max()):.1f} W m-2, O3 {float(s['chem_o3'].min()):.5f}-"
+          f"{float(s['chem_o3'].max()):.5f} ppmv, tau_aer_sw "
+          f"{float(s['tau_aer_sw'].min()):.4g}-{float(s['tau_aer_sw'].max()):.4g}; spec rings "
+          f"at the target; kernel launches {launches}")
+
+    t_now = np.float32(sim.time_s)
+    main, rad, chem = (sim._stepper(k) for k in ("main", "rad", "chem"))
+    main_ms = _timed_ms(lambda: main(sim.state, sim.grid, t_now), 5)
+    rad_ms = _timed_ms(lambda: rad(sim.state, sim.grid, t_now), 2)
+    chem_ms = _timed_ms(lambda: chem(sim.state, sim.grid, t_now), 3)
+    print(f"phases (slice 9), synchronised: main step {main_ms:.3f} ms, rad call "
+          f"{rad_ms:.3f} ms, chem call {chem_ms:.3f} ms; per step of the window: main + "
+          f"(chem + rad)/{sim.chem_every} = "
+          f"{main_ms + (chem_ms + rad_ms) / sim.chem_every:.3f} ms")
+    dev_c, n_c, _ = _profile(lambda: chem(sim.state, sim.grid, t_now))
+    dev_r, n_r, _ = _profile(lambda: rad(sim.state, sim.grid, t_now))
+    sim.sync()
+    dev_ms, n_kernels, rows = _profile(lambda: sim.advance(1))     # main only
+    busy = 100.0 * (dev_ms + (dev_c + dev_r) / sim.chem_every) / ms_step
+    print(f"profile of one slice-9 main step: device busy {dev_ms:.3f} ms in {n_kernels} "
+          f"launches; one chem call {dev_c:.3f} ms in {n_c}, one rad call {dev_r:.3f} ms in "
+          f"{n_r}; against the unprofiled {ms_step:.3f} ms/step the device is busy "
+          f"{busy:.1f}% (main step + a tenth of a chem and a rad call); advect_scalar_5_3 "
+          f"{_per_call_us(rows, 'advect_scalar_5_3'):.2f} us per call; advect_tracers grids: "
+          f"{_tracer_grids_us(rows)}")
+    for t_us, count, key in rows[:8]:
+        print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    dycore_on_path(lambda: sim.advance(1), "slice 9")
+    numbers = {"ms_step": ms_step, "setup_host_s": setup_s, "swap_step": swap_step,
+               "main_ms": main_ms, "chem_ms": chem_ms, "rad_ms": rad_ms,
+               "main_device_ms": dev_ms, "main_launches": n_kernels,
+               "chem_device_ms": dev_c, "rad_device_ms": dev_r, "device_busy_pct": busy,
+               "w_max": w_max}
+    return launches, numbers
+
+
+def _noise_limited(label, gpu, cpu, ulp, phb):
+    """Card against CPU per field: 1e-4 of the field's magnitude (phi at
+    that of phb), or three times the CPU run's own float32 noise (`ulp`:
+    the CPU run again from the full theta changed by one ulp) where that
+    is larger.  States are {name: float64 CPU tensor}.  Returns the worst
+    four (err, name, noise)."""
+    worst = []
+    for k, ref in cpu.items():
+        scale = max(phb if k == "ph" else float(ref.abs().max()), 1e-30)
+        err = float((gpu[k] - ref).abs().max()) / scale
+        noise = float((ulp[k] - ref).abs().max()) / scale
+        worst.append((err, k, noise))
+        if not err <= max(1e-4, 3.0 * noise):
+            raise RuntimeError(f"card vs CPU ({label}): {k} differs by {err:.3g} of its "
+                               f"magnitude (CPU noise {noise:.3g})")
+    worst.sort(reverse=True)
+    return worst[:4]
+
+
+def _theta_ulp(state):
+    t = state["t"]
+    return dict(state, t=(t + 300.0) * (1.0 + 2.0 ** -23) - 300.0)
+
+
+def _host64(state):
+    return {k: v.double().cpu() for k, v in state.items()}
+
+
+def _card_vs_cpu(dev, label, run):
+    """`run(device, perturb)` returns ({part: state}, phb) after its steps,
+    `perturb` applied to its start; the card's run against the CPU's, part
+    by part."""
+    runs = {key: run(where, p) for key, where, p in (("gpu", dev, None), ("cpu", "cpu", None),
+                                                     ("ulp", "cpu", _theta_ulp))}
+    phb = runs["cpu"][1]
+    parts = []
+    for part, cpu in runs["cpu"][0].items():
+        worst = _noise_limited(f"{label}, {part}" if part else label,
+                               _host64(runs["gpu"][0][part]), _host64(cpu),
+                               _host64(runs["ulp"][0][part]), phb)
+        parts.append((f"{part}: " if part else "") + ", ".join(
+            f"{k} {e:.3g} (noise {n:.3g})" for e, k, n in worst))
+    print(f"cross-check {label}, card vs CPU, worst fields: " + "; ".join(parts))
+    return runs["gpu"][0]
+
+
+def item9_cross_checks(dev):
+    """Card against CPU at small sizes for what slice 9's window does not
+    run: a real case with analysis nudging toward its boundary segment; the
+    hill2d_x case; a lat-lon grid reaching 68N with the polar filter; a
+    one-way and a two-way 3:1 nest (the two-way one moved a parent cell
+    east after its first step); and ndown from two history files the port
+    wrote on the card."""
+    import dataclasses
+    import tempfile
+    from wrfchem_arc_interactions_tpu_torch.grid import make_grid
+    from wrfchem_arc_interactions_tpu_torch.grid.projection import Projection
+    from wrfchem_arc_interactions_tpu_torch.io import history as hio
+    from wrfchem_arc_interactions_tpu_torch.models import ideal, ndown, nest, soundings
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+
+    cfg = _cfg_small(24, 16, 12, 12e3, 60.0, 16000.0, 10000.0,
+                     dynamics=dict(kvdif=0.0, bc_x="specified", bc_y="specified"))
+    cfg = cfg.replace(fdda=dataclasses.replace(cfg.fdda, grid_fdda=True, guv=1e-3, gt=1e-3,
+                                               gq=1e-4))
+
+    def real_fdda(where, perturb):
+        grid, state, segs = _real_case(cfg, where, times=(0.0, 3600.0))
+        sim = Simulation(cfg, grid, (perturb or dict)(state), boundary=segs[0], fdda=segs[0],
+                         device=where)
+        sim.advance(3)
+        return {"": sim.state}, float(grid.phb.abs().max())
+
+    _card_vs_cpu(dev, "real case with fdda, 24x16x12", real_fdda)
+    cross_check(dev, _cfg_small(32, 4, 12, 2000.0, 6.0, 12000.0, 20000.0,
+                                dynamics=dict(kvdif=10.0, bc_x="open")),
+                lambda st: st, "hill2d_x", case="hill2d_x", full_theta_ulp=True,
+                hm=300.0, a_half=8000.0, u0=8.0)
+
+    cfg_ll = _cfg_small(32, 16, 10, 50e3, 60.0, 12000.0, 20000.0,
+                        dynamics=dict(kvdif=10.0, fft_filter_lat=45.0, bc_y="open"))
+
+    def latlon(where, perturb):
+        grid = make_grid(cfg_ll, soundings.constant_n2_theta(), where,
+                         projection=Projection(kind="lat-lon", ref_lat=60.0))
+        state = ideal.warm_bubble(cfg_ll, grid, amplitude=2.0, zc=1500.0, xr=150e3, zr=1200.0,
+                                  three_d=True)
+        sim = Simulation(cfg_ll, grid, (perturb or dict)(state), device=where)
+        sim.advance(3)
+        return {"": sim.state}, float(grid.phb.abs().max())
+
+    _card_vs_cpu(dev, "lat-lon grid at 60N (16 rows of 50 km) with the polar filter at 45N",
+                 latlon)
+
+    cfg_n = _cfg_small(24, 14, 8, 3000.0, 12.0, 12000.0, 20000.0, dynamics=dict(kvdif=20.0))
+    spec = nest.NestSpec(i_start=8, j_start=3, nx_parent_cells=8, ny_parent_cells=8, ratio=3)
+    for feedback in (False, True):
+        def nested(where, perturb, feedback=feedback):
+            grid, state = ideal.make_case(cfg_n, "warm_bubble", device=where, amplitude=2.0,
+                                          zc=1500.0, xr=6000.0, zr=1200.0, three_d=True)
+            n = nest.NestedSimulation(cfg_n, grid, (perturb or dict)(state), spec,
+                                      theta_of_z=soundings.constant_n2_theta(),
+                                      feedback=feedback, device=where)
+            n.advance(1)
+            if feedback:
+                n.move(1, 0)
+            n.advance(1)
+            return ({"parent": n.parent.state, "child": n.child.state},
+                    float(grid.phb.abs().max()))
+
+        _card_vs_cpu(dev, "two-way 3:1 nest with a move" if feedback else "one-way 3:1 nest",
+                     nested)
+
+    cfg_h = cfg_n.replace(time_control=dataclasses.replace(cfg_n.time_control,
+                                                           history_interval_s=24.0))
+    with tempfile.TemporaryDirectory() as tmp:
+        grid, state = ideal.make_case(cfg_h, "warm_bubble", device=dev, amplitude=2.0,
+                                      zc=1500.0, xr=8000.0, zr=1200.0, three_d=True)
+        Simulation(cfg_h, grid, state, output_dir=tmp, device=dev).advance(4)
+        hio.flush()
+        files = sorted(glob.glob(f"{tmp}/hist_*"))
+        if len(files) != 2:
+            raise RuntimeError(f"ndown: {len(files)} history files, expected 2")
+        spec_d = nest.NestSpec(i_start=8, j_start=3, nx_parent_cells=8, ny_parent_cells=6)
+
+        def fine(where, perturb):
+            cfg_c, grid_c, state0, segs = ndown.ndown(cfg_h, files, spec_d,
+                                                      soundings.constant_n2_theta(),
+                                                      device=where)
+            sim = Simulation(cfg_c, grid_c, (perturb or dict)(state0), boundary=segs[0],
+                             device=where)
+            sim.advance(3)
+            return {"": sim.state}, float(grid_c.phb.abs().max())
+
+        _card_vs_cpu(dev, "ndown from two history files written on the card", fine)
+
+
 def wide_phase(dev, card, steps=3):
     """Config 3 at 1000x100x50 (100,000 columns; x rows wider than one tile
     of the multi-tracer kernel): that kernel at config 3's 47 scalars on
@@ -1966,14 +2316,23 @@ def main(argv=None) -> int:
     print(f"case squall2d_x 100x100x50 (config 3, {len(state)} fields) built in "
           f"{time.perf_counter() - t0:.2f} s")
     d = cfg.domain
+    # slice 9's shapes and map factor (100x100x50, the Lambert projection at
+    # 40N): the dycore kernels' entries are timed with m2, as slice 9's path
+    # calls them; the flat path beside them
+    grid9 = _projected9(grid)
+    adv_flat = kernel_adv(dev, grid.rdnw, grid.rdx, grid.rdy, d.nz, d.ny, d.nx)
     entries = {
-        "advect_scalar_5_3": kernel_adv(dev, grid.rdnw, grid.rdx, grid.rdy,
-                                        d.nz, d.ny, d.nx),
+        "advect_scalar_5_3": kernel_adv(dev, grid.rdnw, grid.rdx, grid.rdy, d.nz, d.ny, d.nx,
+                                        m2=(grid9.msft * grid9.msft).contiguous()),
         "mie_cheb_eval": kernel_mie(dev, d.nz, d.ny, d.nx),
     }
+    entries["advect_scalar_5_3"]["flat"] = {
+        k: adv_flat[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     modes_nt47 = kernel_tracers(dev, grid, nt=47)
     torch.cuda.empty_cache()
     modes_nt107 = kernel_tracers(dev, grid, nt=107)
+    torch.cuda.empty_cache()
+    modes_nt107_m2 = kernel_tracers(dev, grid9, nt=107)
     _tracers_boundaries(dev, grid)
     torch.cuda.empty_cache()
     entries["ros2_integrate"] = kernel_ros2(dev, d.nx * d.ny * d.nz)
@@ -1996,8 +2355,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches6, numbers6 = slice6_phase(dev, card, args.steps)
     entries["mie_cheb_eval"]["slice6_inputs"] = numbers6.pop("mie_by_bin")
-    entries["advect_tracers"] = tracers_entry(numbers6.pop("tracers_modes"),
-                                              {"modes_nt107": modes_nt107,
+    entries["advect_tracers"] = tracers_entry(modes_nt107_m2,
+                                              {"modes_nt219": numbers6.pop("tracers_modes"),
+                                               "modes_nt107_flat": modes_nt107,
                                                "modes_nt47": modes_nt47})
     torch.cuda.empty_cache()
     cross_check(dev, _cfg6(nx=16, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
@@ -2008,6 +2368,10 @@ def main(argv=None) -> int:
     cross_check(dev, _cfg7(nx=16, ny=8, nz=20, chem_s=6.0, rad_s=6.0,
                            start_date="2000-06-20_12:00:00"), _seed4, "slice 7")
     item7_cross_checks(dev)
+    torch.cuda.empty_cache()
+    launches9, numbers9 = slice9_phase(dev, card, args.steps)
+    torch.cuda.empty_cache()
+    item9_cross_checks(dev)
     torch.cuda.empty_cache()
     modes_wide, launches_wide, mie_wide = wide_phase(dev, card)
     entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
@@ -2021,21 +2385,23 @@ def main(argv=None) -> int:
           for b in entries["mie_cheb_eval"][path].values()))
     for name, by_path in ON_PATH.items():
         entries[name]["bitwise_on_path_calls"] = by_path
-    # "launches" is the count of this slice's main path, the slice-8 window
-    # (config 4 run as a user runs it), which runs all four kernels; the
+    # "launches" is the count of this slice's main path, the slice-9 window
+    # (config 4 on a real-data domain), which runs all four kernels; the
     # earlier paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches8[name]
-        entry["launches_by_path"] = {"slice8_window": launches8[name],
+        entry["launches"] = launches9[name]
+        entry["launches_by_path"] = {"slice9_window": launches9[name],
+                                     "slice8_window": launches8[name],
                                      "slice7_window": launches7[name],
                                      "slice6_window": launches6[name],
                                      "config4_window": launches4[name],
                                      "config3_window": launches3[name],
                                      "slice1_10_steps": launches1[name],
                                      "config3_1000x100_3_steps": launches_wide[name]}
-        if launches8[name] < 1:
-            raise RuntimeError(f"{name} was not launched on slice 8's path")
-    print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8}))
+        if launches9[name] < 1:
+            raise RuntimeError(f"{name} was not launched on slice 9's path")
+    print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8,
+                      "slice9": numbers9}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

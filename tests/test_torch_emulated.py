@@ -16,10 +16,11 @@ to its plain PyTorch version:
 - ``csrc/advect_scalar_5_3.cu`` at small shapes that stress its z chunks
   (ragged ones among them), its warps of 31 cells and the x faces they pass
   by shuffle, and the rows a thread owns, on rows whose starts fall off 16
-  bytes;
+  bytes, on a flat grid and with a map factor;
 - ``csrc/advect_tracers.cu`` at the small shapes that stress its tile, its
   rings of planes and its slots, and at rows wider than one tile (its x
-  tiles), on every lateral boundary kind, with and without the limiter;
+  tiles), on every lateral boundary kind (specified too), with and without
+  the limiter, on a flat grid and with a map factor;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
   substeps over a few blocks of its persistent grid.
 
@@ -34,6 +35,7 @@ where no host C++ compiler is installed.
 """
 
 import ctypes
+import dataclasses
 import os
 import re
 import shutil
@@ -105,11 +107,42 @@ def test_emulated_tracer_kernel_is_bitwise_its_plain_version(tracers_lib, case, 
     assert torch.equal(out, ref)
 
 
-def _emulated_tracers(lib, case, pd, seed):
+def _projected(tg, seed):
+    """`tg` as a projected grid: map factors of a Lambert domain's spread
+    (0.95-1.05), different in every cell so that a factor read at the wrong
+    cell shows."""
+    rng = np.random.default_rng(seed)
+    msft = _t(rng.uniform(0.95, 1.05, tuple(tg.mub.shape)))
+    return dataclasses.replace(tg, msft=msft, curvature=True)
+
+
+# the tracer kernel with a map factor: the small shapes on the open,
+# periodic and specified boundaries, rows in x tiles, and one row
+MSF_CASES = ((3, 9, 13, "specified", "specified"), (5, 17, 33, "periodic", "periodic"),
+             (2, 5, 33, "symmetric", "specified"), (50, 9, 13, "specified", "open"),
+             (1, 1, 13, "periodic", "open"), (2, 3, 1000, "specified", "specified"),
+             (2, 4, 1000, "periodic", "periodic"))
+
+
+@pytest.mark.parametrize("pd", [False, True])
+@pytest.mark.parametrize("case", MSF_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_tracer_kernel_with_map_factor_is_bitwise(tracers_lib, case, pd):
+    """With m2 = msft^2 on every divergence and outflow sum, bitwise as the
+    plain version on a projected grid, including rows of 1,000 cells in x
+    tiles (wider than the 469 and 511 cells one tile holds)."""
+    out, ref, q = _emulated_tracers(tracers_lib, case, pd, 31 + case[2], msf=True)
+    assert float((ref - q).abs().max()) > 1e-3
+    assert torch.equal(out, ref)
+
+
+def _emulated_tracers(lib, case, pd, seed, msf=False):
     """(kernel output, plain output, stage input) of the emulated kernel on
-    seeded inputs at case (nz, ny, nx, bc_x, bc_y)."""
+    seeded inputs at case (nz, ny, nx, bc_x, bc_y), on a projected grid with
+    `msf`."""
     nz, ny, nx, bc_x, bc_y = case
     _, tg = _grids(nz, ny, nx)
+    if msf:
+        tg = _projected(tg, seed)
     f = {k: _t(v) for k, v in _inputs(tg, seed=seed).items()}
     hx = HaloOps(bc_x=BCKind(bc_x), bc_y=BCKind(bc_y))
     q_pad, ru, rv = (hx.pad(f[k], 3).contiguous() for k in ("q", "ru", "rv"))
@@ -118,10 +151,12 @@ def _emulated_tracers(lib, case, pd, seed):
         pt=f["pt"], pd=pd, clip=pd)
     out, r_hi = torch.full_like(ref, float("nan")), torch.full_like(ref, float("nan"))
     code = tracers_kernel._BC_CODE
+    m2 = tracers_kernel.map_factor_sq(tg)
     err = lib.advect_tracers(
         q_pad.data_ptr(), f["phi"].data_ptr(), f["pt"].data_ptr(), ru.data_ptr(),
         rv.data_ptr(), f["ww"].data_ptr(), f["mu_full"].data_ptr(), f["mu_new"].data_ptr(),
-        tg.rdnw.data_ptr(), r_hi.data_ptr(), out.data_ptr(), *ref.shape, float(tg.rdx),
+        tg.rdnw.data_ptr(), None if m2 is None else m2.data_ptr(), r_hi.data_ptr(),
+        out.data_ptr(), *ref.shape, float(tg.rdx),
         float(tg.rdy), 6.0, int(pd), int(pd), code[hx.bc_x], code[hx.bc_y], None)
     assert err == 0
     return out, ref, f["q"]
@@ -315,10 +350,9 @@ def test_emulated_scalar_kernel_plans_cover_the_cases(adv_lib):
         "chunks": 13, "threads": 128, "blocks": 533}
 
 
-@pytest.mark.parametrize("shape", ADV_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_emulated_scalar_kernel_is_bitwise_its_plain_version(adv_lib, shape):
-    """ww is random at the model top and the surface too: the kernel must
-    zero those faces itself, as the plain version does."""
+def _emulated_scalar(adv_lib, shape, msf):
+    """(kernel output, plain output) of the emulated scalar kernel on seeded
+    inputs at `shape`, with a map factor m2 (0.9-1.1) if `msf`."""
     nz, ny, nx = shape
     rng = np.random.default_rng(nz * 1000 + ny * 10 + nx)
 
@@ -329,14 +363,32 @@ def test_emulated_scalar_kernel_is_bitwise_its_plain_version(adv_lib, shape):
     ru, rv = (put(1e6 * rng.normal(size=(nz, ny + 6, nx + 6))) for _ in range(2))
     ww = put(1e3 * rng.normal(size=(nz + 1, ny, nx)))
     rdnw = put(rng.uniform(-60, -40, nz))
-    ref = adv_kernel.advect_scalar_5_3_reference(q, ru, rv, ww, rdnw, 1e-3, 2e-3)
+    m2 = put(rng.uniform(0.9, 1.1, (ny, nx))) if msf else None
+    ref = adv_kernel.advect_scalar_5_3_reference(q, ru, rv, ww, rdnw, 1e-3, 2e-3, m2)
     out = torch.full_like(ref, float("nan"))
     err = adv_lib.advect_scalar_5_3(q.data_ptr(), ru.data_ptr(), rv.data_ptr(), ww.data_ptr(),
-                                    rdnw.data_ptr(), out.data_ptr(), nz, ny, nx, 1e-3, 2e-3,
-                                    None)
+                                    rdnw.data_ptr(), None if m2 is None else m2.data_ptr(),
+                                    out.data_ptr(), nz, ny, nx, 1e-3, 2e-3, None)
     assert err == 0
     assert float(ref.abs().max()) > 1.0
+    return out, ref
+
+
+@pytest.mark.parametrize("shape", ADV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_scalar_kernel_is_bitwise_its_plain_version(adv_lib, shape):
+    """ww is random at the model top and the surface too: the kernel must
+    zero those faces itself, as the plain version does."""
+    out, ref = _emulated_scalar(adv_lib, shape, msf=False)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", ADV_SHAPES[::2], ids=lambda s: "x".join(map(str, s)))
+def test_emulated_scalar_kernel_with_map_factor_is_bitwise(adv_lib, shape):
+    """With m2 on the horizontal divergence: bitwise as the plain version,
+    and not the flat result."""
+    out, ref = _emulated_scalar(adv_lib, shape, msf=True)
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, _emulated_scalar(adv_lib, shape, msf=False)[1])
 
 
 def test_kernel_flags_enter_the_library_name(monkeypatch):

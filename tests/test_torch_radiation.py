@@ -147,6 +147,26 @@ def test_two_stream():
         assert _rel(a, b) <= 1e-5, name
 
 
+def test_two_stream_at_the_resonance():
+    """Where k mu0 rounds to 1 exactly (a pure absorber has k = 1.75; mu0
+    the float32 next to 4/7), the reference's guard pushes by sign(0) = 0
+    and divides by zero: its direct-beam terms are not finite.  The port
+    pushes that case out of the window, as the guard intends, and equals
+    the reference on the neighbouring sun angles (a domain of varying sun
+    angles meets the resonance; slice 9's real-data run did)."""
+    mu0 = np.float32(4.0 / 7.0) + np.float32(2.0 ** -24) * np.arange(-3, 4, dtype=np.float32)
+    hit = np.float32(1.75) * mu0 == np.float32(1.0)
+    assert hit.any() and not hit.all()
+    args = (np.full(7, 0.3, np.float32), np.zeros(7, np.float32), np.full(7, 0.5, np.float32),
+            mu0.astype(np.float32))
+    j = jsw.two_stream(*(jnp.asarray(a) for a in args))
+    o = tsw.two_stream(*(_t(a) for a in args))
+    assert not np.isfinite(np.asarray(j[2])[hit]).all()
+    for name, a, b in zip(("r_dif", "t_dif", "r_dir", "t_dir", "t0"), j, o):
+        assert torch.isfinite(b).all(), name
+        np.testing.assert_array_equal(np.asarray(a)[~hit], b.numpy()[~hit], err_msg=name)
+
+
 def _aerosol(nband, seed):
     rng = np.random.default_rng(seed)
     tau = rng.uniform(0.0, 0.2, (nband, NZ, NCOL)).astype(np.float32)

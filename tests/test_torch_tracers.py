@@ -207,7 +207,8 @@ def test_wrapper_rejects_bad_inputs(grids, bad):
     elif bad == "rank":
         q_pad = q_pad[0]
     elif bad == "msf":
-        grid = dataclasses.replace(tg, curvature=True)
+        # a projected grid whose map factor does not match the tracers' grid
+        grid = dataclasses.replace(tg, msft=tg.msft[:-1].contiguous(), curvature=True)
     with pytest.raises((TypeError, ValueError)):
         tracers_kernel.advect_tracers(q_pad, phi, ru, rv, ww, f["mu_full"],
                                       f["mu_new"], grid, hx, DTS, pt=pt, pd=True,

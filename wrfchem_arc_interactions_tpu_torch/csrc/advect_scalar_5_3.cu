@@ -12,8 +12,18 @@
 //            k, so the index-space upwind direction is -sign(ww)); Fz = 0 at
 //            k = 0 and k = nz (rigid lid and surface).
 //
+// On a map-projected grid an optional m2 (ny, nx), the squared map factor
+// at mass points, scales the horizontal part, as flux_div's m_h does:
+//
+//   out[k,j,i] = -( m2[j,i] * ((Fx[i+1]-Fx[i])*rdx + (Fy[j+1]-Fy[j])*rdy)
+//                   + (Fz[k+1]-Fz[k])*rdnw[k] )
+//
+// The TPU kernel has no map factor (the reference's dycore sends projected
+// grids through its plain operators); with m2 null the flat kernel runs,
+// instruction for instruction as before (a template parameter).
+//
 // Shapes (float32, contiguous): q_pad, ru_pad, rv_pad (nz, ny+6, nx+6);
-// ww (nz+1, ny, nx); rdnw (nz,); out (nz, ny, nx).
+// ww (nz+1, ny, nx); rdnw (nz,); m2 (ny, nx) or null; out (nz, ny, nx).
 //
 // Bound: memory.  Each input read once and the output written once is
 // 4*(3*nz*(ny+6)*(nx+6) + (nz+1)*ny*nx + nz + nz*ny*nx) bytes (10.8 MB at
@@ -67,6 +77,9 @@
 // not the bytes and not the arithmetic (206 float instructions of its 592
 // in SASS, the rest mostly integer address arithmetic and the loads).
 //
+// The map factor adds one load a cell, made once before the march, and one
+// multiply a cell and level.
+//
 // Arithmetic: the order of every operation follows advection.flux5/flux3
 // and flux_div, and the library is built with --fmad=false so that no
 // multiply-add is contracted: the kernel rounds exactly where the plain
@@ -105,6 +118,7 @@ struct Args {
   const float* rv;
   const float* ww;
   const float* rdnw;
+  const float* m2;     // (ny, nx), or null on a flat grid
   float* out;
   int nz, ny, nx;
   int warps, blocks_per_plane, kc;   // warps and blocks of a plane, levels of a chunk
@@ -151,6 +165,7 @@ __device__ __forceinline__ void fetch(Level& L, const Args& a, int k, int px, in
   for (int f = 0; f <= RY; ++f) L.vy[f] = rvk[(f + PAD) * px];
 }
 
+template <bool MSF>
 __global__ void __launch_bounds__(THREADS, RESIDENT) advect_scalar_5_3_kernel(Args a) {
   const int nx = a.nx, ny = a.ny, nz = a.nz, px = nx + 2 * PAD, w = nx + 1;
   const size_t pyx = (size_t)(ny + 2 * PAD) * px, nyx = (size_t)ny * nx;
@@ -173,10 +188,12 @@ __global__ void __launch_bounds__(THREADS, RESIDENT) advect_scalar_5_3_kernel(Ar
   const int top = ny + 5 - j0;
   int og[RY];
   bool cell[RY];
+  float m2[RY];        // the rows' squared map factors (MSF)
 #pragma unroll
   for (int r = 0; r < RY; ++r) {
     cell[r] = owner && j0 + r < ny;
     og[r] = min(j0 + r, ny - 1) * nx + min(i, nx - 1);
+    m2[r] = MSF ? a.m2[og[r]] : 1.0f;
   }
 
   // the z face below the chunk (0 at the surface), q one level below and
@@ -222,6 +239,7 @@ __global__ void __launch_bounds__(THREADS, RESIDENT) advect_scalar_5_3_kernel(Ar
       const float fz_up = lid ? 0.0f : fz;
       float div = (fx1 - fx0) * a.rdx;
       div = div + (fy[r + 1] - fy[r]) * a.rdy;
+      if (MSF) div = m2[r] * div;
       div = div + (fz_up - fz_lo[r]) * rd;
       if (cell[r]) out_k[og[r]] = -div;
       fz_lo[r] = fz_up;
@@ -257,16 +275,21 @@ int sm_count() {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `m2` (ny, nx) may be null: a flat grid.
 extern "C" int advect_scalar_5_3(const float* q_pad, const float* ru_pad,
                                  const float* rv_pad, const float* ww,
-                                 const float* rdnw, float* out, int nz, int ny,
-                                 int nx, float rdx, float rdy, void* stream) {
+                                 const float* rdnw, const float* m2, float* out, int nz,
+                                 int ny, int nx, float rdx, float rdy, void* stream) {
   int p[4];
   make_plan(nz, ny, nx, sm_count(), p);
-  const Args a{q_pad, ru_pad, rv_pad, ww, rdnw, out, nz, ny, nx, p[0], p[1], p[2], rdx, rdy};
+  const Args a{q_pad, ru_pad, rv_pad, ww, rdnw, m2, out, nz, ny, nx, p[0], p[1], p[2], rdx,
+               rdy};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)(p[1] * p[3]);
-  advect_scalar_5_3_kernel<<<blocks, THREADS, 0, s>>>(a);
+  if (m2 != nullptr)
+    advect_scalar_5_3_kernel<true><<<blocks, THREADS, 0, s>>>(a);
+  else
+    advect_scalar_5_3_kernel<false><<<blocks, THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,10 +16,18 @@
 //   tend   = -div F (+ mu_full * pt when a tendency stack is given)
 //   q_new  = (phi_old + dts * tend) / mu_new,   max(q_new, 0) if clip
 //
+// On a map-projected grid an optional m2 (ny, nx), the squared map factor
+// at mass points, scales the horizontal part of every divergence (-div L,
+// -div F) and of every outflow sum of the limiter's factors, as the
+// reference's flux_div(m_h = m2), limit_low_order and pd_limit do.  The
+// TPU kernel has no map factor (the reference sends projected grids
+// through its plain operators); with m2 null the flat kernels run,
+// instruction for instruction as before (a template parameter).
+//
 // Shapes (float32, contiguous): q (nt, nz, ny+6, nx+6) padded by the
 // lateral boundary rule; phi_old, pt, r_hi, out (nt, nz, ny, nx);
 // ru, rv (nz, ny+6, nx+6); ww (nz+1, ny, nx); mu_full, mu_new (ny, nx);
-// rdnw (nz,).
+// rdnw (nz,); m2 (ny, nx) or null.
 //
 // Bound: memory.  Each input read once and the output written once is
 // ~0.39 GB at nt = 47 and 100x100x50 (0.12 ms at 3.35 TB/s), against
@@ -89,6 +97,11 @@
 //   forms r_lo from the periodic padding of q (phi and ww read at the
 //   wrapped row), which gives the far side's value bit for bit, and reads
 //   r_hi from the far side.
+// - The map factor of a slot's cell (the mapped cell for a halo slot) is
+//   loaded once, before the march, into a register beside mu_full and
+//   mu_new; it costs one multiply in each divergence and each factor.
+// - A specified lateral boundary (real-data runs) pads like an open one
+//   (edge replication), so it takes the open boundary's index map.
 // - Residency: three blocks on an SM without the limiter, two with it
 //   (registers by launch bound, shared memory by the tile height).
 // - Tried on the card and dropped: two tracers a block sharing ru, rv and ww
@@ -137,6 +150,7 @@ struct Args {
   const float* mu_full;
   const float* mu_new;
   const float* rdnw;
+  const float* m2;       // may be null (flat grid)
   float* r_hi;           // written by FACTOR, read by LIMITED
   float* out;
   int nt, nz, ny, nx;
@@ -212,23 +226,30 @@ __host__ __device__ __forceinline__ int bc_map(int c, int n, int bc) {
   return c < 0 ? -c : 2 * (n - 1) - c;           // symmetric: reflect
 }
 
-// Limiter factor: min(1, avail / outflow) where there is outflow, else 1.
+// Limiter factor: min(1, avail / outflow) where there is outflow, else 1;
+// m2 scales the horizontal outflow (MSF).
+template <bool MSF>
 __device__ __forceinline__ float factor(float avail, float xl, float xr, float yl,
-                                        float yr, float zl, float zu, float rdnw,
+                                        float yr, float zl, float zu, float rdnw, float m2,
                                         const Args& a) {
   const float out_x = fmaxf(xr, 0.0f) - fminf(xl, 0.0f);
   const float out_y = fmaxf(yr, 0.0f) - fminf(yl, 0.0f);
   const float up_c = -zu * rdnw;
   const float lo_c = zl * rdnw;
   const float out_z = fmaxf(-up_c, 0.0f) + fmaxf(-lo_c, 0.0f);
-  const float p_out = a.dts * ((out_x * a.rdx + out_y * a.rdy) + out_z);
+  float out_h = out_x * a.rdx + out_y * a.rdy;
+  if (MSF) out_h = m2 * out_h;
+  const float p_out = a.dts * (out_h + out_z);
   return p_out > 0.0f ? fminf(avail / fmaxf(p_out, 1e-30f), 1.0f) : 1.0f;
 }
 
+template <bool MSF>
 __device__ __forceinline__ float divergence(float xl, float xr, float yl, float yr,
-                                            float zl, float zu, float rdnw,
+                                            float zl, float zu, float rdnw, float m2,
                                             const Args& a) {
-  return -(((xr - xl) * a.rdx + (yr - yl) * a.rdy) + (zu - zl) * rdnw);
+  float hdiv = (xr - xl) * a.rdx + (yr - yl) * a.rdy;
+  if (MSF) hdiv = m2 * hdiv;
+  return -(hdiv + (zu - zl) * rdnw);
 }
 
 // Asynchronous copies from device to shared memory; they have landed for
@@ -305,8 +326,9 @@ enum : int {
 //   LIMITED: r_lo on chip again, r_hi from device memory, limited fluxes,
 //            update.
 // XT: the tile is one of a.xtiles x tiles of the row (its planes carry the
-// x halo and a row pitch of their own); else it spans the row.
-template <int MODE, int CPT, bool XT>
+// x halo and a row pitch of their own); else it spans the row.  MSF: a.m2
+// scales the horizontal divergences and outflows.
+template <int MODE, int CPT, bool XT, bool MSF>
 __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, int clip) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool PD = MODE != PLAIN;
@@ -352,7 +374,7 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
   const bool x_mapped = XT && a.bcx != 0;
 
   int flags[CPT], oq[CPT], og[CPT];
-  float mu_f[CPT], mu_n[CPT];
+  float mu_f[CPT], mu_n[CPT], m2s[CPT];
 #pragma unroll
   for (int m = 0; m < CPT; ++m) {
     const int s = threadIdx.x + m * THREADS;
@@ -378,6 +400,7 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
     og[m] = (f & IS_HELD) ? bc_map(j, ny, a.bcy) * nx + (XT ? bc_map(i, nx, a.bcx) : i) : 0;
     mu_f[m] = (f & IS_CELL) && MODE != FACTOR && pt_t != nullptr ? a.mu_full[og[m]] : 0.0f;
     mu_n[m] = (f & IS_CELL) && MODE != FACTOR ? a.mu_new[og[m]] : 1.0f;
+    m2s[m] = MSF && (f & IS_HELD) ? a.m2[og[m]] : 1.0f;
   }
 
   // plane `lev` of a ring, where its copy put element 0
@@ -512,12 +535,12 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
         const int s = threadIdx.x + m * THREADS;
         const bool cell = flags[m] & IS_CELL;
         const size_t c = (size_t)k * nyx + og[m];
-        const float div = divergence(fxs[s], fxs[s + 1], fys[s], fys[s + w], fz_lo[m],
-                                     fz_up[m], rd, a);
+        const float div = divergence<MSF>(fxs[s], fxs[s + 1], fys[s], fys[s + w], fz_lo[m],
+                                          fz_up[m], rd, m2s[m], a);
         if (MODE == FACTOR) {
           const float phi_td = fmaxf(phi_0[m] + a.dts * div, 0.0f);
-          const float r = factor(phi_td, fxs[l.sp + s], fxs[l.sp + s + 1], fys[l.sp + s],
-                                 fys[l.sp + s + w], az_lo[m], az_up[m], rd, a);
+          const float r = factor<MSF>(phi_td, fxs[l.sp + s], fxs[l.sp + s + 1], fys[l.sp + s],
+                                      fys[l.sp + s + w], az_lo[m], az_up[m], rd, m2s[m], a);
           if (cell) r_hi_t[c] = r;
         } else {
           float tend = div;
@@ -546,9 +569,10 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
         const int s = threadIdx.x + m * THREADS, o = oq[m];
         const float* const q = ql + o;
         const float zu = top ? 0.0f : -flux1(-ww_n[m], q[0], qu[o]);
-        const float r = factor(fmaxf(phi_n[m], 0.0f), flux1(rul[o], q[-1], q[0]),
-                               flux1(rul[o + 1], q[0], q[1]), flux1(rvl[o], q[-pp], q[0]),
-                               flux1(rvl[o + pp], q[0], q[pp]), low_z[m], zu, rd, a);
+        const float r = factor<MSF>(fmaxf(phi_n[m], 0.0f), flux1(rul[o], q[-1], q[0]),
+                                    flux1(rul[o + 1], q[0], q[1]), flux1(rvl[o], q[-pp], q[0]),
+                                    flux1(rvl[o + pp], q[0], q[pp]), low_z[m], zu, rd, m2s[m],
+                                    a);
         if (flags[m] & IS_HELD) rl[s] = r;
         low_z[m] = zu;
       }
@@ -608,10 +632,10 @@ int widest_row_of(int ny) {
   return lo;
 }
 
-template <int MODE, int CPT, bool XT>
-int launch(Args a, int ty, int clip, cudaStream_t s) {
+template <int MODE, int CPT, bool XT, bool MSF>
+int launch_msf(Args a, int ty, int clip, cudaStream_t s) {
   const cudaError_t attr = cudaFuncSetAttribute(
-      stage_kernel<MODE, CPT, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      stage_kernel<MODE, CPT, XT, MSF>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   a.ty = ty;
   a.tiles = (a.ny + ty - 1) / ty;
@@ -619,8 +643,14 @@ int launch(Args a, int ty, int clip, cudaStream_t s) {
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t bytes =
       (size_t)layout(MODE, ty, a.nx, CPT * THREADS, XT, a.tx, a.pitch).total * sizeof(float);
-  stage_kernel<MODE, CPT, XT><<<(unsigned)blocks, THREADS, bytes, s>>>(a, clip);
+  stage_kernel<MODE, CPT, XT, MSF><<<(unsigned)blocks, THREADS, bytes, s>>>(a, clip);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, int CPT, bool XT>
+int launch(Args a, int ty, int clip, cudaStream_t s) {
+  return a.m2 != nullptr ? launch_msf<MODE, CPT, XT, true>(a, ty, clip, s)
+                         : launch_msf<MODE, CPT, XT, false>(a, ty, clip, s);
 }
 
 // Four slots a thread where a tile of two rows spans the row that way, else
@@ -646,17 +676,17 @@ int launch_mode(Args a, int clip, cudaStream_t s) {
 }  // namespace
 
 // Launches on `stream` (one grid without the limiter, two with it) and
-// returns the first cudaGetLastError() that is not 0.  `pt` may be null;
-// `r_hi` is (nt, nz, ny, nx) scratch, unused (may be null) without the
-// limiter.
+// returns the first cudaGetLastError() that is not 0.  `pt` and `m2` may be
+// null; `r_hi` is (nt, nz, ny, nx) scratch, unused (may be null) without
+// the limiter.
 extern "C" int advect_tracers(const float* q, const float* phi, const float* pt,
                               const float* ru, const float* rv, const float* ww,
                               const float* mu_full, const float* mu_new,
-                              const float* rdnw, float* r_hi, float* out,
+                              const float* rdnw, const float* m2, float* r_hi, float* out,
                               int nt, int nz, int ny, int nx, float rdx, float rdy,
                               float dts, int pd, int clip, int bcx, int bcy,
                               void* stream) {
-  const Args a{q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, r_hi, out,
+  const Args a{q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, m2, r_hi, out,
                nt, nz, ny, nx, bcx, bcy, 0, 0, 0, 1, 0, 0, rdx, rdy, dts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!pd) return launch_mode<PLAIN>(a, clip, s);

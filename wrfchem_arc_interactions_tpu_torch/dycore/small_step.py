@@ -6,8 +6,15 @@ Perturbations X'' are relative to the RK-stage reference state; per substep:
 EOS linearisation with divergence damping, forward U'' V'' update, column
 mass and omega'' by vertical integration, forward Theta'', and the implicit
 W''-phi'' tridiagonal solve with off-centering beta (epssm) and implicit
-Rayleigh damping.  Flat grid, single device: the terrain and map-factor
-branches of the reference come with a later slice.
+Rayleigh damping.  Single device.
+
+Over terrain the forward momentum update carries the sloped-coordinate
+term -eps d(phb)/dx d(p'')/d(eta), and the surface row of the implicit
+solve is the kinematic free-slip value w = u.grad(phi_sfc)/g of the
+substep's new winds instead of 0.  On a projected grid m^2 scales the
+divergence and theta flux terms, 1/m the buoyancy of the W'' row and m the
+g W / mu coupling of phi''; the implicit diagonal is m-free (the two
+cancel along a column).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import ddz_center
 from wrfchem_arc_interactions_tpu_torch.dycore.tridiag import thomas
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import win
@@ -50,6 +58,12 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
     eps_w = ac["eps_w"]
     rdn_w = ac["rdn_w"]
     dphdn_ref = ac["dphdn_ref"]
+
+    # map factors (real projections)
+    msf = "msft" in ac
+    m_t = ac.get("msft")
+    inv_m = ac["inv_msft"][None] if msf else 1.0
+    m2 = (m_t * m_t) if msf else None
 
     def p_of2(th_pp, ph_pp):
         return coef_pt * th_pp + s * (ph_pp[1:] - ph_pp[:-1])
@@ -89,10 +103,19 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
             dys = 1.0 / grid.rdy
             dv = dv - (emdiv * dys) * (win(mudf_pad, 0, 0, pad=1)
                                        - win(mudf_pad, -1, 0, pad=1))[None]
+        if grid.has_terrain:
+            # sloped-coordinate term: -eps d(phb)/dx * d(p'')/d(eta)
+            dpdn = ddz_center(win(p_pad, 0, -1, ex=1, pad=1), grid.znu)
+            dpdn_u = 0.5 * (dpdn[..., :-1] + dpdn[..., 1:])
+            du = du - cs["c_ux4"] * dpdn_u
+            dpdn_y = ddz_center(win(p_pad, -1, 0, ey=1, pad=1), grid.znu)
+            dpdn_v = 0.5 * (dpdn_y[:, :-1, :] + dpdn_y[:, 1:, :])
+            dv = dv - cs["c_vy4"] * dpdn_v
         return {"u": cs["u"] + dtau * du, "v": cs["v"] + dtau * dv}
 
     def divth_fn(padded, cs):
-        """Horizontal divergence + theta horizontal flux divergence."""
+        """Horizontal divergence + theta horizontal flux divergence (+ the
+        kinematic surface-w target over terrain, from the same winds)."""
         u_e = win(padded["u"], 0, 1, pad=1)
         u_w = win(padded["u"], 0, 0, pad=1)
         v_n = win(padded["v"], 1, 0, pad=1)
@@ -100,13 +123,27 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
         div = (u_e - u_w) * grid.rdx + (v_n - v_s) * grid.rdy
         hdiv_th = ((u_e * cs["th_x_e"] - u_w * cs["th_x_w"]) * grid.rdx
                    + (v_n * cs["th_y_n"] - v_s * cs["th_y_s"]) * grid.rdy)
-        return {"div": div, "hdiv_th": hdiv_th}
+        if "m2" in cs:
+            div = cs["m2"][None] * div
+            hdiv_th = cs["m2"][None] * hdiv_th
+        out = {"div": div, "hdiv_th": hdiv_th}
+        if grid.has_terrain:
+            out["wsfc_pp"] = (cs["cwx_w"] * u_w[0] + cs["cwx_e"] * u_e[0]
+                              + cs["cwy_s"] * v_s[0] + cs["cwy_n"] * v_n[0])
+        return out
 
     mom_consts = {"R_ru": R["ru"], "R_rv": R["rv"],
                   "c_ux": ac["c_ux"], "c_ux2": ac["c_ux2"], "c_ux3": ac["c_ux3"],
                   "c_vy": ac["c_vy"], "c_vy2": ac["c_vy2"], "c_vy3": ac["c_vy3"]}
     divth_consts = {"th_x_w": th_x_w, "th_x_e": th_x_e,
                     "th_y_s": th_y_s, "th_y_n": th_y_n}
+    if msf:
+        divth_consts["m2"] = m2
+    if grid.has_terrain:
+        mom_consts["c_ux4"] = ac["c_ux4"]
+        mom_consts["c_vy4"] = ac["c_vy4"]
+        for k in ("cwx_w", "cwx_e", "cwy_s", "cwy_n"):
+            divth_consts[k] = ac[k]
 
     for _ in range(ns):
         p_now = p_of2(th, ph)
@@ -136,7 +173,7 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
 
         # --- implicit W''-phi'' -------------------------------------------
         a_w = dtau * G * bp * inv_mu
-        gw_m = G * inv_mu[None]
+        gw_m = (G * m_t * inv_mu)[None] if msf else G * inv_mu[None]
         ph_exp_t = (R["rph"] - om * dphdn_ref * inv_mu[None]
                     + gw_m * bm * w)
         ph_exp = ph + dtau * ph_exp_t
@@ -161,15 +198,19 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
         C = -K * s_up
         B = 1.0 + K * (s_up + s_dn) + dtau * ac["w_damp"]
         D = (w + dtau * (R["rw"]
-                         + G * eps_w * (bp * dpdn_exp + bm * dpdn_old)
-                         - G * mu[None]))
-        # flat surface row: W'' = 0
+                         + (G * inv_m) * eps_w * (bp * dpdn_exp + bm * dpdn_old)
+                         - (G * inv_m) * mu[None]))
+        # surface row: flat => W'' = 0; terrain => the kinematic BC with the
+        # new acoustic winds (reference part + perturbation-wind part)
         A[0] = 0.0
         C[0] = 0.0
         B[0] = 1.0
-        D[0] = 0.0
+        if grid.has_terrain:
+            D[0] = ac["wsfc_const"] + dd["wsfc_pp"]
+        else:
+            D[0] = 0.0
         w = thomas(A, B, C, D)
-        ph = ph_exp + a_w[None] * w
+        ph = ph_exp + (a_w * m_t if msf else a_w)[None] * w
         ph[0] = ph_exp[0]
 
         # --- averaged mass fluxes for scalar advection --------------------

@@ -29,6 +29,15 @@ stages where no limiter runs, is the fused 5th/3rd-order advection kernel
 (`ops.adv_kernel.advect_scalar_5_3`) whenever the configured orders are
 (5, 3); other orders take `advection.advect_scalar`.
 
+Terrain and map projections: over terrain the base state rides the
+group-A padding into the pressure gradient, the geopotential tendency and
+the acoustic coefficients (the sloped-coordinate terms and the kinematic
+surface w); on a projected grid the coupled variables are U = mu u / m,
+W = mu w / m, and every scalar update carries m^2 on its horizontal
+divergence — the kernels take it as their ``m2`` argument.  After each
+stage's update, a global lat-lon run (``fft_filter_lat`` < 90) filters the
+poleward rows (`dycore.polar_filter`).
+
 Tensors of the incoming state are never written: new stage fields are new
 tensors, and the few in-place writes below go into tensors computed here.
 """
@@ -45,6 +54,7 @@ from wrfchem_arc_interactions_tpu_torch.config.namelist import AdvLimiter
 from wrfchem_arc_interactions_tpu_torch.dycore import advection as adv
 from wrfchem_arc_interactions_tpu_torch.dycore import big_step as bs
 from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import ddz_center, diagnose
+from wrfchem_arc_interactions_tpu_torch.dycore.polar_filter import PolarFilter
 from wrfchem_arc_interactions_tpu_torch.dycore.small_step import acoustic_loop
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.ops.adv_kernel import advect_scalar_5_3
@@ -53,7 +63,6 @@ from wrfchem_arc_interactions_tpu_torch.ops.stencil import avg_z_centers_to_face
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.registry.state import State, advected_names
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
-from wrfchem_arc_interactions_tpu_torch.utils.support import check_grid
 
 
 def _mu_u(mu_full_pad):
@@ -100,11 +109,13 @@ def _w_damp_profile(grid: Grid, cfg: Config):
 
 
 def _plain_update(q_pad, phi_old, pt_q, limiter: AdvLimiter, ru_s, rv_s, ww_s,
-                  mu_full, mu_full_new, dts, grid: Grid, hx: HaloOps, h_s: int, v_s: int):
+                  mu_full, mu_full_new, dts, grid: Grid, hx: HaloOps, h_s: int, v_s: int,
+                  m2=None):
     """(phi_old + dts (-div F + mu pt)) / mu_new for one scalar (nz, ny, nx)
     or a stack of them (nt, nz, ny, nx): the fluxes of the configured
     orders, limited by `limiter`, and the result clipped at zero under
-    either limiter, as the reference's loop, scan and stacked bodies do."""
+    either limiter, as the reference's loop, scan and stacked bodies do;
+    `m2` (ny, nx) scales the horizontal divergence on a projected grid."""
     fx, fy, fz = adv.scalar_fluxes(q_pad, ru_s, rv_s, ww_s, h_s, v_s)
     if limiter == AdvLimiter.POSITIVE_DEFINITE:
         fx, fy, fz = adv.pd_limit(q_pad, phi_old, fx, fy, fz, ru_s, rv_s, ww_s,
@@ -112,7 +123,7 @@ def _plain_update(q_pad, phi_old, pt_q, limiter: AdvLimiter, ru_s, rv_s, ww_s,
     elif limiter == AdvLimiter.MONOTONIC:
         fx, fy, fz = adv.mono_limit(q_pad, phi_old, mu_full_new, fx, fy, fz,
                                     ru_s, rv_s, ww_s, dts, grid, hx)
-    tend = adv.flux_div(fx, fy, fz, grid)
+    tend = adv.flux_div(fx, fy, fz, grid, m_h=m2)
     if pt_q is not None:
         tend = tend + mu_full * pt_q
     qn = (phi_old + dts * tend) / mu_full_new
@@ -124,7 +135,6 @@ def _plain_update(q_pad, phi_old, pt_q, limiter: AdvLimiter, ru_s, rv_s, ww_s,
 def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
          phys_tend: Optional[Dict[str, torch.Tensor]] = None) -> State:
     """Advance the dynamical state one dt (physics tendencies held fixed)."""
-    check_grid(grid)
     dyn = cfg.dynamics
     moist = cfg.moist_species()
     scalars = advected_names(cfg)       # refuses unported configurations
@@ -152,24 +162,49 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
     batched = len(stage_scalars) >= min(dyn.scan_tracer_min, dyn.stack_tracer_min)
     loop_names = () if batched else stage_scalars
 
+    # ---- map-factor coupling (U = mu u / m, W = mu w / m; m2 on every
+    # scalar divergence); the flat path does no extra work ----------------
+    msf = grid.has_msf
+    inv_mu_f = 1.0 / grid.msfu if msf else None
+    inv_mv_f = 1.0 / grid.msfv if msf else None
+    inv_mt = 1.0 / grid.msft if msf else None
+    m2_t = grid.msft * grid.msft if msf else None
+
     def scalar_tend(q_pad, ru, rv, ww_):
         """-div F of an uncoupled scalar, no limiter."""
         if fused_53:
-            return advect_scalar_5_3(q_pad, ru, rv, ww_, grid.rdnw, grid.rdx, grid.rdy)
+            return advect_scalar_5_3(q_pad, ru, rv, ww_, grid.rdnw, grid.rdx, grid.rdy,
+                                     m2=m2_t)
         return adv.advect_scalar(q_pad, ru, rv, ww_, grid, h_s, v_s)
 
     w_damp = _w_damp_profile(grid, cfg)
     rdn_w = _rdn_w(grid)
+    polar = (PolarFilter(grid, dyn.fft_filter_lat, grid.nx)
+             if dyn.fft_filter_lat < 90.0 else None)
+    # the time-invariant grid fields the stencils read in the halo: the base
+    # state over terrain, the map factors of a projected grid (padded once a
+    # step; the reference sends them with every stage's exchange)
+    static = {}
+    if grid.has_terrain:
+        static.update(phb=grid.phb, mub=grid.mub, alb=grid.alb)
+    if msf:
+        static.update(msfu=grid.msfu, msfv=grid.msfv)
+    static = hx.pad_many(static, 3)
+    base_pads = ({k: static[k] for k in ("phb", "mub", "alb")}
+                 if grid.has_terrain else None)
 
     # ---- step-start (t0) coupled quantities ------------------------------
     mu_full_0 = grid.mub + state["mu"]
     g0 = hx.pad_many({"u": state["u"], "v": state["v"], "mu": mu_full_0}, 1)
     mu_u0 = win(_mu_u(g0["mu"]), 0, 0, pad=1)
     mu_v0 = win(_mu_v(g0["mu"]), 0, 0, pad=1)
+    if msf:
+        mu_u0 = mu_u0 * inv_mu_f
+        mu_v0 = mu_v0 * inv_mv_f
     cpl0 = {
         "u": mu_u0[None] * state["u"],
         "v": mu_v0[None] * state["v"],
-        "w": mu_full_0[None] * state["w"],
+        "w": (mu_full_0 * inv_mt if msf else mu_full_0)[None] * state["w"],
         "th": mu_full_0[None] * (state["t"] + c.T0),
         "mu": state["mu"],
         "ph": state["ph"],
@@ -210,26 +245,35 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         for q in loop_names:
             fields[q] = stage_state[q]
         gA = hx.pad_many(fields, 3)
+        gA.update(static)
 
         mu_u_pad = _mu_u(gA["mu"])
         mu_v_pad = _mu_v(gA["mu"])
-        ru_pad = mu_u_pad[None] * gA["u"]
-        rv_pad = mu_v_pad[None] * gA["v"]
+        if msf:
+            ru_pad = mu_u_pad[None] * gA["u"] / gA["msfu"][None]
+            rv_pad = mu_v_pad[None] * gA["v"] / gA["msfv"][None]
+        else:
+            ru_pad = mu_u_pad[None] * gA["u"]
+            rv_pad = mu_v_pad[None] * gA["v"]
         dmudt, ww = bs.omega_diagnosis(ru_pad, rv_pad, grid)
         ww_pad = hx.pad(ww, 3)
         th_full_pad = gA["t"] + c.T0
 
         # ---- large-step tendencies R --------------------------------------
-        pgf_u, pgf_v = bs.pgf_uv(gA["p"], gA["ph"], gA["al"], gA["eps"], gA["mu"], grid)
+        pgf_u, pgf_v = bs.pgf_uv(gA["p"], gA["ph"], gA["al"], gA["eps"], gA["mu"], grid,
+                                 base_pads=base_pads)
         cor_u, cor_v = bs.coriolis_uv(gA["u"], gA["v"], gA["mu"], grid)
         mu_u = win(mu_u_pad, 0, 0)
         mu_v = win(mu_v_pad, 0, 0)
+        # physics tendencies couple into the momentum-flux units mu/m
+        mu_u_c = mu_u * inv_mu_f if msf else mu_u
+        mu_v_c = mu_v * inv_mv_f if msf else mu_v
 
         R = {}
         R["ru"] = (adv.advect_u(gA["u"], ru_pad, rv_pad, ww_pad, grid, h_m, v_m)
-                   + pgf_u + cor_u + mu_u[None] * pt.get("u", 0.0))
+                   + pgf_u + cor_u + mu_u_c[None] * pt.get("u", 0.0))
         R["rv"] = (adv.advect_v(gA["v"], ru_pad, rv_pad, ww_pad, grid, h_m, v_m)
-                   + pgf_v + cor_v + mu_v[None] * pt.get("v", 0.0))
+                   + pgf_v + cor_v + mu_v_c[None] * pt.get("v", 0.0))
         rw_adv = adv.advect_w(gA["w"], ru_pad, rv_pad, ww, grid, h_m, v_m)
         buoy = bs.buoyancy_w(diag.p_pert, diag.eps_ratio, stage_state["mu"], grid)
         R["rw"] = rw_adv + buoy
@@ -239,14 +283,15 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             cflv = torch.abs(ww) * dt * rdn_w / mu_full[None]
             rate = torch.clamp(
                 W_DAMP_ALPHA * torch.clamp(cflv - W_DAMP_BETA, min=0.0), max=0.3)
-            R["rw"] = R["rw"] - (rate / dt) * (mu_full[None] * stage_state["w"])
+            mu_w_c = mu_full * inv_mt if msf else mu_full
+            R["rw"] = R["rw"] - (rate / dt) * (mu_w_c[None] * stage_state["w"])
         R["rth"] = (scalar_tend(th_full_pad, ru_pad, rv_pad, ww)
                     + mu_full[None] * pt.get("th", 0.0))
         # rphi takes the coupled W so its g W / mu term matches the acoustic
         # loop's fast term exactly
         R["rph"] = bs.rphi_tendency(ru_pad, rv_pad, gA["ph"],
                                     mu_full[None] * stage_state["w"], ww,
-                                    mu_full, grid)
+                                    mu_full, grid, phb_pad=gA.get("phb"))
         R["rmu"] = dmudt
 
         # ---- acoustic coefficients ----------------------------------------
@@ -285,11 +330,62 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             "rv_ref": win(rv_pad, 0, 0),
             "ww_ref": ww,
         }
+        if msf:
+            ac["msft"] = grid.msft
+            ac["inv_msft"] = inv_mt
+        if grid.has_terrain:
+            # sloped-coordinate terms of the acoustic linearisation: the
+            # terrain PGF term linearised around the stage reference gives a
+            # mu''-coefficient (in c_ux3) and a d(p'')/d(eta)-coefficient
+            # (c_ux4)
+            mub_u = 0.5 * (win(gA["mub"], 0, -1) + win(gA["mub"], 0, 0))
+            mub_v = 0.5 * (win(gA["mub"], -1, 0) + win(gA["mub"], 0, 0))
+            alb_u = 0.5 * (win(gA["alb"], 0, -1) + win(gA["alb"], 0, 0))
+            alb_v = 0.5 * (win(gA["alb"], -1, 0) + win(gA["alb"], 0, 0))
+            ald_u = 0.5 * (win(gA["al"], 0, -1) + win(gA["al"], 0, 0))
+            ald_v = 0.5 * (win(gA["al"], -1, 0) + win(gA["al"], 0, 0))
+            dphbdx_w = (win(gA["phb"], 0, 0, ex=1) - win(gA["phb"], 0, -1, ex=1)) * grid.rdx
+            dphbdx = 0.5 * (dphbdx_w[:-1, :, :-1] + dphbdx_w[1:, :, :-1])
+            dphbdy_w = (win(gA["phb"], 0, 0, ey=1) - win(gA["phb"], -1, 0, ey=1)) * grid.rdy
+            dphbdy = 0.5 * (dphbdy_w[:-1, :-1, :] + dphbdy_w[1:, :-1, :])
+            ac["c_ux2"] = eps_u * (mub_u[None] + dpdn_u)
+            ac["c_vy2"] = eps_v * (mub_v[None] + dpdn_v)
+            ac["c_ux3"] = eal_u * dpdx_ref - eps_u * dphbdx * (ald_u / alb_u)
+            ac["c_vy3"] = eal_v * dpdy_ref - eps_v * dphbdy * (ald_v / alb_v)
+            ac["c_ux4"] = eps_u * dphbdx
+            ac["c_vy4"] = eps_v * dphbdy
+
+            # kinematic surface BC w_sfc = (u dx(phi_sfc) + v dy(phi_sfc))/g:
+            # a reference part (wsfc_const) and coefficients of the acoustic
+            # wind perturbations at the four faces around the cell
+            mu_u_facex = win(mu_u_pad, 0, 0, ex=1)
+            mu_v_facey = win(mu_v_pad, 0, 0, ey=1)
+            dhdx_f = dphbdx_w[0] / c.G
+            dhdy_f = dphbdy_w[0] / c.G
+            if msf:
+                msfu_fx = win(gA["msfu"], 0, 0, ex=1)
+                msfv_fy = win(gA["msfv"], 0, 0, ey=1)
+                mu_w_cpl = mu_full * inv_mt
+            else:
+                msfu_fx = torch.ones_like(mu_u_facex)
+                msfv_fy = torch.ones_like(mu_v_facey)
+                mu_w_cpl = mu_full
+            u_ref_f = win(ru_pad, 0, 0, ex=1)[0] * msfu_fx / mu_u_facex
+            v_ref_f = win(rv_pad, 0, 0, ey=1)[0] * msfv_fy / mu_v_facey
+            w_ref_sfc = 0.5 * (u_ref_f[:, :-1] * dhdx_f[:, :-1]
+                               + u_ref_f[:, 1:] * dhdx_f[:, 1:]
+                               + v_ref_f[:-1, :] * dhdy_f[:-1, :]
+                               + v_ref_f[1:, :] * dhdy_f[1:, :])
+            ac["wsfc_const"] = mu_w_cpl * (w_ref_sfc - stage_state["w"][0])
+            ac["cwx_w"] = mu_w_cpl * 0.5 * dhdx_f[:, :-1] * msfu_fx[:, :-1] / mu_u_facex[:, :-1]
+            ac["cwx_e"] = mu_w_cpl * 0.5 * dhdx_f[:, 1:] * msfu_fx[:, 1:] / mu_u_facex[:, 1:]
+            ac["cwy_s"] = mu_w_cpl * 0.5 * dhdy_f[:-1, :] * msfv_fy[:-1, :] / mu_v_facey[:-1, :]
+            ac["cwy_n"] = mu_w_cpl * 0.5 * dhdy_f[1:, :] * msfv_fy[1:, :] / mu_v_facey[1:, :]
 
         # ---- acoustic perturbation initial values -------------------------
         cplref = {
             "u": ac["ru_ref"], "v": ac["rv_ref"],
-            "w": mu_full[None] * stage_state["w"],
+            "w": (mu_full * inv_mt if msf else mu_full)[None] * stage_state["w"],
             "th": th_cpl, "mu": stage_state["mu"], "ph": stage_state["ph"],
         }
         if istage == 0:
@@ -305,10 +401,14 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         gmu = hx.pad(mu_full_new, 1)
         mu_u_new = win(_mu_u(gmu), 0, 0, pad=1)
         mu_v_new = win(_mu_v(gmu), 0, 0, pad=1)
+        if msf:
+            mu_u_new = mu_u_new * inv_mu_f
+            mu_v_new = mu_v_new * inv_mv_f
+        mu_w_new = mu_full_new * inv_mt if msf else mu_full_new
         new = dict(stage_state)
         new["u"] = (cplref["u"] + pp_out["u"]) / mu_u_new[None]
         new["v"] = (cplref["v"] + pp_out["v"]) / mu_v_new[None]
-        new["w"] = (cplref["w"] + pp_out["w"]) / mu_full_new[None]
+        new["w"] = (cplref["w"] + pp_out["w"]) / mu_w_new[None]
         new["t"] = (cplref["th"] + pp_out["th"]) / mu_full_new[None] - c.T0
         new["mu"] = mu_new
         new["ph"] = cplref["ph"] + pp_out["ph"]
@@ -325,7 +425,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         def update(q_pad, phi, pt_q, lim):
             """One flux-form update of the uncoupled scalar(s) in `q_pad`."""
             return _plain_update(q_pad, phi, pt_q, lim, ru_s, rv_s, ww_s, mu_full,
-                                 mu_full_new, dts, grid, hx, h_s, v_s)
+                                 mu_full_new, dts, grid, hx, h_s, v_s, m2=m2_t)
 
         if batched:
             if fused_53 and limiter != AdvLimiter.MONOTONIC:
@@ -362,6 +462,14 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
                 fin_new = update(fin_pad, phi_fin, None, dyn.chem_adv_opt)
             for i, q in enumerate(final_scalars):
                 new[q] = fin_new[i]
+
+        if polar is not None:
+            # global lat-lon runs: zonally truncate the poleward rows after
+            # each stage's updates (the solve_em.F pxft call sites), sharp on
+            # the dynamical fields, tapered and clipped on the scalars
+            new = polar.momentum(new)
+            for q in (scalars if final else stage_scalars):
+                new[q] = polar.scalar(new[q])
 
         stage_state = new
 

@@ -5,7 +5,8 @@ Coordinate: ARW terrain-following dry-mass coordinate; eta decreases from 1
 (surface, k=0) to 0 (model top, k=nz), arrays stored surface-first.  3D
 arrays are (nz[, +1], ny, nx); 2D are (ny, nx).
 
-The base state is computed on the host in numpy float64, exactly as the
+The base state (over terrain, where there is terrain) and the projection's
+metric fields are computed on the host in numpy float64, exactly as the
 reference does, and only then cast to the state dtype and moved to the
 device, so that both packages start from the same float32 grid.
 """
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from wrfchem_arc_interactions_tpu_torch.config import Config
+from wrfchem_arc_interactions_tpu_torch.grid.projection import projection_fields
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike
 
@@ -124,14 +126,25 @@ def make_eta_levels(nz: int,
 def make_grid(cfg: Config,
               theta_of_z: Callable[[np.ndarray], np.ndarray],
               device: DeviceLike,
+              terrain: Optional[np.ndarray] = None,
               f0: float = 0.0,
               lat0: float = 40.0,
               lon0: float = 0.0,
               p_surf: float = c.P0,
               stretch: str = "uniform_dz",
+              projection=None,
               dtype: torch.dtype = torch.float32) -> Grid:
-    """Grid + dry hydrostatic base state of a flat ideal case (terrain and
-    map projections come with a later slice)."""
+    """Grid + dry hydrostatic base state on `device`.
+
+    ``theta_of_z`` is the base-state sounding (numpy, called on the host).
+    With `terrain` (ny, nx) [m] the surface dry pressure of each column is
+    read from the fine hydrostatic p(z) of the sounding at z = ht and the
+    base state is iterated per column, so that phb/alb/pb satisfy the
+    discrete hydrostatic relation exactly over the orography.  With a
+    `projection` (`grid.projection.Projection`, not cartesian) the grid
+    carries its map factors, latitude-varying Coriolis and lat/lon, and the
+    dycore switches on its map-factor terms (`Grid.curvature`).
+    """
     d = cfg.domain
     nz, ny, nx = d.nz, d.ny, d.nx
     znw = make_eta_levels(nz, d.ztop, d.p_top, theta_of_z, stretch)
@@ -147,8 +160,25 @@ def make_grid(cfg: Config,
     fnp[1:] = 0.5 * dnw[1:] / dn[1:]
     fnm[1:] = 0.5 * dnw[:-1] / dn[1:]
 
-    terrain = np.zeros((ny, nx))
-    p_surf_col = np.full((ny, nx), p_surf)
+    if terrain is None:
+        terrain = np.zeros((ny, nx))
+    terrain = np.asarray(terrain, np.float64)
+    has_terrain = bool(np.any(terrain != terrain.flat[0])) or bool(terrain.flat[0] != 0.0)
+
+    if has_terrain:
+        # per-column surface dry pressure from the fine hydrostatic p(z)
+        zf = np.linspace(0.0, max(d.ztop, float(terrain.max()) + 1.0), 4001)
+        theta_f = theta_of_z(zf)
+        pi = np.empty_like(zf)
+        pi[0] = (p_surf / c.P0) ** (c.R_D / c.CP)
+        dzf = zf[1] - zf[0]
+        th_mid = 0.5 * (theta_f[:-1] + theta_f[1:])
+        for i in range(len(zf) - 1):
+            pi[i + 1] = pi[i] - dzf * c.G / (c.CP * th_mid[i])
+        p_of_z = c.P0 * pi ** (c.CP / c.R_D)
+        p_surf_col = np.interp(terrain, zf, p_of_z)
+    else:
+        p_surf_col = np.full((ny, nx), p_surf)
 
     # vectorised per-column base-state iteration (float64 host-side)
     mub = p_surf_col - d.p_top
@@ -169,6 +199,18 @@ def make_grid(cfg: Config,
         phb[k + 1] = phb[k] - dnw[k] * mub * alb[k]
 
     ones = np.ones((ny, nx))
+    if projection is not None and projection.kind != "cartesian":
+        pf = projection_fields(projection, ny, nx, d.dx, d.dy)
+        msft, msfu, msfv = pf["msft"], pf["msfu"], pf["msfv"]
+        dmdy = pf["dmdy"]
+        f_field, xlat, xlong = pf["f"], pf["xlat"], pf["xlong"]
+        curvature = True
+    else:
+        msft = msfu = msfv = ones
+        dmdy = np.zeros((ny, nx))
+        f_field = f0 * ones
+        xlat, xlong = lat0 * ones, lon0 * ones
+        curvature = False
 
     def arr(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float64)).to(dtype).to(device)
@@ -177,10 +219,11 @@ def make_grid(cfg: Config,
         znw=arr(znw), znu=arr(znu), dnw=arr(dnw), rdnw=arr(rdnw),
         dn=arr(dn), rdn=arr(rdn), fnp=arr(fnp), fnm=arr(fnm),
         mub=arr(mub), pb=arr(pb), alb=arr(alb), phb=arr(phb), t_init=arr(t_init),
-        msft=arr(ones), msfu=arr(ones), msfv=arr(ones), dmdy=arr(np.zeros((ny, nx))),
-        f=arr(f0 * ones), ht=arr(terrain),
-        xlat=arr(lat0 * ones), xlong=arr(lon0 * ones),
+        msft=arr(msft), msfu=arr(msfu), msfv=arr(msfv), dmdy=arr(dmdy),
+        f=arr(f_field), ht=arr(terrain),
+        xlat=arr(xlat), xlong=arr(xlong),
         dx=float(d.dx), dy=float(d.dy), p_top=float(d.p_top),
+        has_terrain=has_terrain, curvature=curvature,
     )
 
 

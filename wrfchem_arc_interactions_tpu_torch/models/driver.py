@@ -17,6 +17,13 @@ once, when the `Simulation` is built.
 Every alarm counts from `step_idx`, so a run restarted from a restart file
 (`io.history.read_restart`, then `step_idx` and `time_s` set from it) writes
 and steps as the unbroken run does, bit for bit.
+
+Real-data runs: with specified lateral boundaries the main stepper applies
+the Davies zones (`models.lateral_bc`) toward ``sim.boundary`` after the
+post-dynamics physics, at the step's start time as the reference does;
+the caller swaps ``sim.boundary`` for the next segment as model time
+crosses its end.  With ``grid_fdda`` the analysis nudging
+(`models.fdda`) joins the held physics tendencies before the RK loop.
 """
 
 from __future__ import annotations
@@ -30,11 +37,14 @@ import torch
 
 from wrfchem_arc_interactions_tpu_torch.chem.driver import chem_driver
 from wrfchem_arc_interactions_tpu_torch.config import Config
+from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
 from wrfchem_arc_interactions_tpu_torch.dycore.solve import step as dyn_step
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.io import diags
 from wrfchem_arc_interactions_tpu_torch.io import history as hio
 from wrfchem_arc_interactions_tpu_torch.io.auxinput import EmissionStream
+from wrfchem_arc_interactions_tpu_torch.models.fdda import apply_nudging
+from wrfchem_arc_interactions_tpu_torch.models.lateral_bc import make_specified_bc
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.physics.driver import post_dynamics, pre_dynamics
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import radiation_driver
@@ -43,7 +53,7 @@ from wrfchem_arc_interactions_tpu_torch.utils.clock import ModelClock
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
 from wrfchem_arc_interactions_tpu_torch.utils.logging import log
 from wrfchem_arc_interactions_tpu_torch.utils.support import (
-    SLICE_MESH, SLICE_REAL, check_config, check_grid, unported,
+    SLICE_MESH, check_config, unported,
 )
 
 # pending tslist values are brought to the host at least this often
@@ -63,15 +73,14 @@ class Simulation:
         `EmissionStream` — are moved there.  With `output_dir`, the history,
         restart and auxhist alarms of ``cfg.time_control`` write files there;
         with `check_nans`, every step checks theta (one device sync a step).
-        `mesh`, `boundary` and `fdda` are accepted as None only."""
+        `boundary` (a `models.lateral_bc.LateralBoundary`) is required with
+        specified lateral boundaries; `fdda` (the same kind of two-snapshot
+        target) is the analysis that ``cfg.fdda.grid_fdda`` nudges toward.
+        Both are moved to the device, also when set later.  `mesh` is
+        accepted as None only."""
         check_config(cfg)
-        check_grid(grid)
         if mesh is not None:
             raise unported("Simulation on a device mesh", SLICE_MESH)
-        if boundary is not None:
-            raise unported("lateral boundary data (Simulation(boundary=...))", SLICE_REAL)
-        if fdda is not None:
-            raise unported("an analysis-nudging target (Simulation(fdda=...))", SLICE_REAL)
         if not (emissions is None or isinstance(emissions, (Mapping, EmissionStream))):
             raise TypeError(f"emissions must be a dict of (ny, nx) fluxes or an "
                             f"EmissionStream, not {type(emissions).__name__}")
@@ -79,6 +88,15 @@ class Simulation:
         self.cfg = cfg
         self.grid = grid.to(self.device)
         self.state = {k: v.to(self.device) for k, v in state.items()}
+        self.boundary = boundary
+        # analysis-nudging target, active when cfg.fdda.grid_fdda is set
+        self.fdda = fdda if cfg.fdda.grid_fdda else None
+        self.spec_bc = None
+        if BCKind.SPECIFIED in (cfg.dynamics.bc_x, cfg.dynamics.bc_y):
+            if boundary is None:
+                raise ValueError("specified lateral boundaries need a LateralBoundary")
+            self.spec_bc = make_specified_bc(
+                cfg, self.grid, names=("u", "v", "w", "t", "mu", "ph") + cfg.moist_species())
         self._stream_snaps = None
         if isinstance(emissions, EmissionStream):
             self.emissions = emissions
@@ -115,6 +133,22 @@ class Simulation:
         self._steppers: Dict[str, Callable] = {}
         self._init_ts()
 
+    @property
+    def boundary(self):
+        return self._boundary
+
+    @boundary.setter
+    def boundary(self, bdy):
+        self._boundary = None if bdy is None else bdy.to(self.device)
+
+    @property
+    def fdda(self):
+        return self._fdda
+
+    @fdda.setter
+    def fdda(self, target):
+        self._fdda = None if target is None else target.to(self.device)
+
     def _solar_time(self, t_s: np.float32):
         """(UTC seconds, julian day) of model time `t_s`, in float32 in the
         reference's order: the julian day advances with model time."""
@@ -130,8 +164,13 @@ class Simulation:
             if key == "main":
                 def fn(s, g, t_s):
                     s, tend = pre_dynamics(s, g, cfg, hx, dt, t_s)
+                    if self.fdda is not None:
+                        tend = apply_nudging(tend, s, self.fdda, t_s, cfg)
                     s = dyn_step(s, g, cfg, hx, dt, tend)
-                    return post_dynamics(s, g, cfg, dt)
+                    s = post_dynamics(s, g, cfg, dt)
+                    if self.spec_bc is not None:
+                        s = self.spec_bc.apply(s, self.boundary, t_s, dt)
+                    return s
             elif key == "rad":
                 def fn(s, g, t_s):
                     ts, jd = self._solar_time(t_s)

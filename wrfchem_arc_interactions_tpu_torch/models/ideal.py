@@ -10,8 +10,7 @@ back), and only the finished fields are cast and moved to the device.
 Ported cases: every case of the reference on a flat grid (``warm_bubble``,
 ``quiescent``, ``squall2d_x`` and ``squall2d_y``, ``grav2d_x``,
 ``seabreeze2d_x``, ``quarter_ss``, ``b_wave``, ``les`` and
-``tropical_cyclone``); ``hill2d_x`` needs terrain and comes with the real-data
-slice.
+``tropical_cyclone``), and ``hill2d_x`` over terrain.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from wrfchem_arc_interactions_tpu_torch.utils import constants as c
 from wrfchem_arc_interactions_tpu_torch.utils.device import (
     DeviceLike, resolve_device, to_numpy64,
 )
-from wrfchem_arc_interactions_tpu_torch.utils.support import SLICE_REAL
 
 
 def _eps_w_np(qtot: np.ndarray, fnm: np.ndarray, fnp: np.ndarray) -> np.ndarray:
@@ -203,6 +201,24 @@ def squall_line_y(cfg: Config, grid: Grid, bubble_amp: float = 3.0,
     v_prof = np.where(z < shear_depth, v_shear * (1.0 - z / shear_depth), 0.0)
     state = init_balanced(cfg, grid, theta, qv, v=v_prof)
     return state, grid
+
+
+def hill2d_x(cfg: Config, device: torch.device, hm: float = 100.0,
+             a_half: float = 10000.0, u0: float = 10.0) -> Tuple[Grid, State]:
+    """2D (x-z) flow over a witch-of-Agnesi hill, the mountain-wave case
+    (canonical module_initialize_hill2d_x.F): constant-N sounding, uniform
+    wind u0; the initial state is the discrete base state over the terrain,
+    so the terrain-following pressure-gradient balance is exercised
+    directly."""
+    d = cfg.domain
+    x = (np.arange(d.nx) + 0.5 - 0.5 * d.nx) * d.dx
+    ht = hm / (1.0 + (x / a_half) ** 2)
+    ht2d = np.broadcast_to(ht[None, :], (d.ny, d.nx))
+    grid = make_grid(cfg, soundings.constant_n2_theta(), device, terrain=ht2d)
+    theta = to_numpy64(grid.t_init)
+    qv = np.zeros((d.nz, d.ny, d.nx))
+    p_sfc = to_numpy64(grid.mub) + grid.p_top
+    return grid, init_balanced(cfg, grid, theta, qv, u=u0, p_sfc=p_sfc)
 
 
 def grav2d_x(cfg: Config, device: torch.device, amplitude: float = -15.0,
@@ -402,8 +418,7 @@ def make_case(cfg: Config, case: str = "warm_bubble", device: DeviceLike = None,
     if case == "tropical_cyclone":
         return tropical_cyclone(cfg, dev, **kw)
     if case == "hill2d_x":
-        raise NotImplementedError(f"ideal case 'hill2d_x' needs terrain, which is not "
-                                  f"ported yet; it comes with {SLICE_REAL}")
+        return hill2d_x(cfg, dev, **kw)
     if case == "quiescent":
         grid = make_grid(cfg, soundings.constant_n2_theta(), dev)
         theta = to_numpy64(grid.t_init)

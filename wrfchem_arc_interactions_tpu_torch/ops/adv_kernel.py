@@ -3,9 +3,14 @@ its plain PyTorch version.
 
 Replaces the TPU kernel ``wrfchem_arc_interactions_tpu/ops/pallas_adv.py::
 advect_scalar_5_3``.  Both compute
-``dycore/advection.py::advect_scalar(q_pad, ru_pad, rv_pad, ww, grid, 5, 3)``
-on a flat grid: the tendency -div F of one mass-point scalar, with 5th-order
-horizontal and 3rd-order vertical fluxes.  The kernel
+``dycore/advection.py::advect_scalar(q_pad, ru_pad, rv_pad, ww, grid, 5, 3)``:
+the tendency -div F of one mass-point scalar, with 5th-order horizontal
+and 3rd-order vertical fluxes.  On a map-projected grid the caller passes
+``m2`` (ny, nx), the squared map factor, which scales the horizontal
+divergence as `advection.flux_div`'s ``m_h`` does; the TPU kernel has no
+map factor (the reference sends projected grids through its plain
+operators), so this departs from it to compute what the reference's plain
+path computes.  The kernel
 (``csrc/advect_scalar_5_3.cu``) is memory-bound (10.8 MB per call at
 100x100x50, 3.2 us at 3.35 TB/s); each thread marches a few cells of one
 column up a chunk of levels in registers (`plan` gives the grid), and its
@@ -28,7 +33,7 @@ from wrfchem_arc_interactions_tpu_torch.dycore.advection import (
 from wrfchem_arc_interactions_tpu_torch.ops import build
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import PAD, win
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -49,9 +54,9 @@ def plan(lib: ctypes.CDLL, nz: int, ny: int, nx: int, sms: int) -> dict:
 
 
 def advect_scalar_5_3_reference(q_pad, ru_pad, rv_pad, ww, rdnw, rdx: float,
-                                rdy: float) -> torch.Tensor:
+                                rdy: float, m2=None) -> torch.Tensor:
     """Plain PyTorch version: `advection.advect_scalar(..., 5, 3)` with the
-    grid reduced to (rdnw, rdx, rdy), in the same operation order."""
+    grid reduced to (rdnw, rdx, rdy, m2), in the same operation order."""
     fx = flux5(win(ru_pad, 0, 0, ex=1), *_stencil_x(q_pad))
     fy = flux5(win(rv_pad, 0, 0, ey=1), *_stencil_y(q_pad))
     qm3, qm2, qm1, q0, qp1, qp2 = _stencil_z(win(q_pad, 0, 0), ww.shape[0])
@@ -60,13 +65,17 @@ def advect_scalar_5_3_reference(q_pad, ru_pad, rv_pad, ww, rdnw, rdx: float,
     fz[-1] = 0.0
     hdiv = ((fx[..., 1:] - fx[..., :-1]) * rdx
             + (fy[..., 1:, :] - fy[..., :-1, :]) * rdy)
+    if m2 is not None:
+        hdiv = m2[None] * hdiv
     dfz = fz[1:] - fz[:-1]
     return -(hdiv + dfz * rdnw.reshape(-1, 1, 1))
 
 
-def _check(q_pad, ru_pad, rv_pad, ww, rdnw):
+def _check(q_pad, ru_pad, rv_pad, ww, rdnw, m2):
     tensors = {"q_pad": q_pad, "ru_pad": ru_pad, "rv_pad": rv_pad, "ww": ww,
                "rdnw": rdnw}
+    if m2 is not None:
+        tensors["m2"] = m2
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
@@ -89,16 +98,19 @@ def _check(q_pad, ru_pad, rv_pad, ww, rdnw):
         raise ValueError(f"ww must be {(nz + 1, ny, nx)}, got {tuple(ww.shape)}")
     if tuple(rdnw.shape) != (nz,):
         raise ValueError(f"rdnw must be ({nz},), got {tuple(rdnw.shape)}")
+    if m2 is not None and tuple(m2.shape) != (ny, nx):
+        raise ValueError(f"m2 must be {(ny, nx)}, got {tuple(m2.shape)}")
     return nz, ny, nx
 
 
 def advect_scalar_5_3(q_pad, ru_pad, rv_pad, ww, rdnw, rdx: float,
-                      rdy: float) -> torch.Tensor:
+                      rdy: float, m2=None) -> torch.Tensor:
     """Tendency (nz, ny, nx) of a mass-point scalar; q_pad/ru_pad/rv_pad are
-    PAD-padded (nz, ny+6, nx+6), ww is (nz+1, ny, nx), rdnw is (nz,)."""
-    nz, ny, nx = _check(q_pad, ru_pad, rv_pad, ww, rdnw)
+    PAD-padded (nz, ny+6, nx+6), ww is (nz+1, ny, nx), rdnw is (nz,), m2 is
+    None (a flat grid) or the squared map factor (ny, nx)."""
+    nz, ny, nx = _check(q_pad, ru_pad, rv_pad, ww, rdnw, m2)
     if q_pad.device.type == "cpu":
-        return advect_scalar_5_3_reference(q_pad, ru_pad, rv_pad, ww, rdnw, rdx, rdy)
+        return advect_scalar_5_3_reference(q_pad, ru_pad, rv_pad, ww, rdnw, rdx, rdy, m2)
     if q_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {q_pad.device}")
     fn = build.load("advect_scalar_5_3").advect_scalar_5_3
@@ -108,7 +120,8 @@ def advect_scalar_5_3(q_pad, ru_pad, rv_pad, ww, rdnw, rdx: float,
     with torch.cuda.device(q_pad.device):
         stream = torch.cuda.current_stream(q_pad.device).cuda_stream
         err = fn(q_pad.data_ptr(), ru_pad.data_ptr(), rv_pad.data_ptr(),
-                 ww.data_ptr(), rdnw.data_ptr(), out.data_ptr(), nz, ny, nx,
+                 ww.data_ptr(), rdnw.data_ptr(), None if m2 is None else m2.data_ptr(),
+                 out.data_ptr(), nz, ny, nx,
                  float(rdx), float(rdy), stream)
     if err != 0:
         raise RuntimeError(f"advect_scalar_5_3 launch failed: cudaError {err}")

@@ -11,6 +11,15 @@ mu_new`` and optionally ``max(q_new, 0)``.  The tendency term is the
 config-3 physics tendency (diffusion) that every scalar carries; the
 limiter must see phi_old without it.
 
+On a map-projected grid (``grid.has_msf``) the squared map factor m2 =
+msft^2 scales the horizontal part of every divergence and of the
+limiter's outflow sums, as the reference's ``flux_div(m_h=m2)``,
+`advection.limit_low_order` and `advection.pd_limit` do.  The TPU kernel
+never had it (the reference's projected grids take its plain operators);
+like the ``mu_full * pt`` term it departs from the TPU kernel to compute
+what the reference's plain path computes.  A specified lateral boundary
+pads like an open one (edge replication) and takes the open code.
+
 The kernel (``csrc/advect_tracers.cu``) is bound by memory on paper (~0.39 GB
 per call at nt = 47 and 100x100x50, 0.12 ms at 3.35 TB/s); what costs time
 on the card is the instructions around the arithmetic.  So a block owns a
@@ -51,9 +60,15 @@ from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 
 GRIDS_PLAIN = 1          # grids of one call without the limiter
 GRIDS_LIMITED = 2        # ... with it: the r_hi grid and the update grid
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_BC_CODE = {BCKind.PERIODIC: 0, BCKind.OPEN: 1, BCKind.SYMMETRIC: 2}
+_BC_CODE = {BCKind.PERIODIC: 0, BCKind.OPEN: 1, BCKind.SYMMETRIC: 2,
+            BCKind.SPECIFIED: 1}
+
+
+def map_factor_sq(grid: Grid) -> Optional[torch.Tensor]:
+    """msft^2 (ny, nx) of a projected grid, None on a flat one."""
+    return grid.msft * grid.msft if grid.has_msf else None
 
 
 def advect_tracers_reference(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
@@ -66,7 +81,7 @@ def advect_tracers_reference(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new
     if pd:
         fx, fy, fz = adv.pd_limit(q_pad, phi_old, fx, fy, fz, ru_pad, rv_pad, ww,
                                   dts, grid, hx)
-    tend = adv.flux_div(fx, fy, fz, grid)
+    tend = adv.flux_div(fx, fy, fz, grid, m_h=map_factor_sq(grid))
     if pt is not None:
         tend = tend + mu_full[None, None] * pt
     qn = (phi_old + dts * tend) / mu_new[None, None]
@@ -75,10 +90,12 @@ def advect_tracers_reference(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new
     return qn
 
 
-def _check(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, rdnw, pt, hx):
+def _check(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, rdnw, m2, pt, hx):
     tensors = {"q_pad": q_pad, "phi_old": phi_old, "ru_pad": ru_pad,
                "rv_pad": rv_pad, "ww": ww, "mu_full": mu_full, "mu_new": mu_new,
                "rdnw": rdnw}
+    if m2 is not None:
+        tensors["m2"] = m2
     if pt is not None:
         tensors["pt"] = pt
     for name, t in tensors.items():
@@ -98,7 +115,7 @@ def _check(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, rdnw, pt, hx):
         raise ValueError(f"empty q_pad {tuple(q_pad.shape)}")
     want = {"phi_old": (nt, nz, ny, nx), "ru_pad": (nz, nyp, nxp),
             "rv_pad": (nz, nyp, nxp), "ww": (nz + 1, ny, nx), "mu_full": (ny, nx),
-            "mu_new": (ny, nx), "rdnw": (nz,), "pt": (nt, nz, ny, nx)}
+            "mu_new": (ny, nx), "rdnw": (nz,), "m2": (ny, nx), "pt": (nt, nz, ny, nx)}
     for name, t in tensors.items():
         if name in want and tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
@@ -121,12 +138,10 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
     ru_pad/rv_pad (nz, ny+6, nx+6), ww (nz+1, ny, nx): the mass fluxes;
     mu_full/mu_new (ny, nx): the stage and the new column mass; pt
     (nt, nz, ny, nx) or None: physics tendencies (uncoupled).  The model
-    passes clip = pd; `clip` without `pd` is the monotonic limiter's
-    pairing, which `utils.support.check_config` still refuses."""
-    if grid.has_msf:
-        raise ValueError("advect_tracers takes a flat grid (no map factors)")
+    passes clip = pd.  On a projected grid the kernel takes m2 = msft^2."""
+    m2 = map_factor_sq(grid)
     nt, nz, ny, nx = _check(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
-                            grid.rdnw, pt, hx)
+                            grid.rdnw, m2, pt, hx)
     if q_pad.device.type == "cpu":
         return advect_tracers_reference(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full,
                                         mu_new, grid, hx, dts, pt, pd, clip)
@@ -145,7 +160,8 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
         stream = torch.cuda.current_stream(q_pad.device).cuda_stream
         err = fn(q_pad.data_ptr(), phi_old.data_ptr(), ptr(pt), ru_pad.data_ptr(),
                  rv_pad.data_ptr(), ww.data_ptr(), mu_full.data_ptr(),
-                 mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(r_hi), out.data_ptr(),
+                 mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(m2), ptr(r_hi),
+                 out.data_ptr(),
                  nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
                  float(dts), int(pd), int(clip), _BC_CODE[hx.bc_x], _BC_CODE[hx.bc_y],
                  stream)

@@ -4,7 +4,10 @@ the JAX package's `parallel/halo.py`).
 On one device the halos are physical boundary conditions: periodic wraps
 (``circular``), open replicates the edge (``replicate``), symmetric
 reflects without repeating the edge (``reflect``, which is what ``jnp.pad``'s
-``reflect`` does too).  The X axis is padded first, then Y, as in the
+``reflect`` does too).  A specified boundary replicates the edge like an
+open one: its outermost rows are set to the boundary data after each step
+(`models.lateral_bc`), so the halo beyond them only needs a consistent
+extrapolation.  The X axis is padded first, then Y, as in the
 reference; each mode is a separable index map, so the corners agree.
 Decomposition over several GPUs comes with a later slice.
 """
@@ -20,15 +23,7 @@ import torch.nn.functional as F
 from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
 
 _MODES = {BCKind.PERIODIC: "circular", BCKind.OPEN: "replicate",
-          BCKind.SYMMETRIC: "reflect"}
-
-
-def _bc_mode(bc: BCKind) -> str:
-    if bc not in _MODES:
-        raise NotImplementedError(
-            f"lateral boundary {bc.value!r} is not ported yet; it comes with a "
-            "later slice (ROADMAP Queue 1 item 9)")
-    return _MODES[bc]
+          BCKind.SYMMETRIC: "reflect", BCKind.SPECIFIED: "replicate"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +37,8 @@ class HaloOps:
         """Pad the trailing (y, x) axes by `width` halo cells."""
         shape = a.shape
         a4 = a.reshape(-1, 1, shape[-2], shape[-1])
-        a4 = F.pad(a4, (width, width, 0, 0), mode=_bc_mode(self.bc_x))
-        a4 = F.pad(a4, (0, 0, width, width), mode=_bc_mode(self.bc_y))
+        a4 = F.pad(a4, (width, width, 0, 0), mode=_MODES[self.bc_x])
+        a4 = F.pad(a4, (0, 0, width, width), mode=_MODES[self.bc_y])
         return a4.reshape(shape[:-2] + a4.shape[-2:])
 
     def pad_many(self, fields: Dict[str, torch.Tensor],

@@ -75,8 +75,13 @@ def two_stream(tau, ssa, asy, mu0):
     alpha1 = gamma1 * gamma4 + gamma2 * gamma3
     alpha2 = gamma1 * gamma3 + gamma2 * gamma4
     kmu = k * mu0
-    # push kmu out of the catastrophically cancelling window around 1
-    kmu = 1.0 + torch.sign(kmu - 1.0) * torch.clamp(torch.abs(kmu - 1.0), min=0.12)
+    # push kmu out of the catastrophically cancelling window around 1.  The
+    # reference pushes by sign(kmu - 1), which is 0 at kmu == 1 exactly and
+    # leaves denom_dir = 0 (a NaN column wherever k mu0 rounds to 1, as a
+    # domain of varying sun angles meets); the port pushes that case up, as
+    # the window's guard intends, and equals the reference everywhere else
+    side = torch.where(kmu >= 1.0, 1.0, -1.0)
+    kmu = 1.0 + side * torch.clamp(torch.abs(kmu - 1.0), min=0.12)
     denom_dir = 1.0 - kmu * kmu
 
     # Meador & Weaver (1980) eqs. 14-15 (flux normalisation, diffuse parts)

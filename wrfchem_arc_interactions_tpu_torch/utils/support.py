@@ -9,17 +9,17 @@ Morrison microphysics with aerosol activation; the YSU and MYNN boundary
 layers over the slab surface or the Noah land surface; BMJ, KF and Grell
 cumulus; RRTMG or the simple radiation; the whole chem driver for every
 package; and the run infrastructure (history, restart, auxhist, tslist,
-the NaN guard, the emission stream).  Options outside these (real data and
-nesting, several GPUs) raise `NotImplementedError` naming the slice that brings
-them, so that nothing runs silently with a piece missing.
+the NaN guard, the emission stream); and real data and nesting: terrain,
+map projections, specified lateral boundaries, the real.exe and WPS path,
+analysis nudging, the polar filter, nests and ndown.  What is outside
+these (several GPUs) raises `NotImplementedError` naming the slice that
+brings it, so that nothing runs silently with a piece missing.
 """
 
 from __future__ import annotations
 
 from wrfchem_arc_interactions_tpu_torch.config import Config
-from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
 
-SLICE_REAL = "a later slice (ROADMAP Queue 1 item 9, real data and nesting)"
 SLICE_MESH = "a later slice (ROADMAP Queue 1 item 10, multi-GPU decomposition)"
 
 
@@ -29,24 +29,11 @@ def unported(what: str, where: str) -> NotImplementedError:
 
 def check_config(cfg: Config) -> None:
     """Raise `NotImplementedError` for any option the port does not carry."""
-    dyn = cfg.dynamics
     if cfg.chem.aer_op_opt != 1:
         raise NotImplementedError(
             f"aer_op_opt={cfg.chem.aer_op_opt}: the reference reads this option nowhere "
             "and always mixes by volume (option 1); the port refuses other values "
             "rather than ignore them")
-    if dyn.fft_filter_lat < 90.0:
-        raise unported("the polar FFT filter", SLICE_REAL)
-    if BCKind.SPECIFIED in (dyn.bc_x, dyn.bc_y):
-        raise unported("specified lateral boundaries", SLICE_REAL)
-    if cfg.fdda.grid_fdda:
-        raise unported("analysis nudging (grid_fdda)", SLICE_REAL)
     if cfg.parallel.mesh_x > 1 or cfg.parallel.mesh_y > 1:
         raise unported("a device mesh", SLICE_MESH)
 
-
-def check_grid(grid) -> None:
-    if grid.has_terrain:
-        raise unported("terrain", SLICE_REAL)
-    if grid.curvature:
-        raise unported("map projections", SLICE_REAL)
