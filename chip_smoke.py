@@ -111,10 +111,32 @@ Phases (each raises on failure, and the script then exits non-zero):
 17. wide phase: config 3 at 1000x100x50 (100,000 columns, rows in x tiles
    of the multi-tracer kernel): that kernel timed at 47 scalars on the
    grid, 3 steps with one rad and one chem call and exact launches, and
-   the rad call's peak memory.
+   the rad call's peak memory;
+18. the multi-tracer kernel at block seams: a 2x2 set of 50x50 blocks with
+   true-image halos cut out of config-4-like inputs (107 scalars, 50
+   levels), with the limiter, flat and with m2, on every boundary kind on
+   the outer sides, each block through the seam grids and bitwise against
+   the plain version on the whole domain; one block's seam grids timed
+   beside the flat kernel at the same shape;
+19. slice-10 phase, this slice's main path: config 4 (`_cfg4`, 100x100x50)
+   on a 2x2 mesh, four ranks spawned on the card over gloo (the kernels
+   built in this process first), 2 warm-up steps and a 20-step window (two
+   chem calls), gathered on rank 0 and held to one block's run of the same
+   22 steps on the card within tests/test_parallel.py's full-step
+   tolerances; per rank the launches of each kernel per main step and per
+   chem call (equal to one block's), the exchanges and bytes per main step
+   and ms/step (four ranks share one card, strips through the host: not a
+   scaling number); then on every rank, on its own inputs at its block's
+   shapes, every scalar-advection and multi-tracer call of one main step
+   bitwise against the plain versions (the limited calls through the
+   wrapper's seam grids and r_hi's ring exchange) and one chem call's Mie
+   and ROS2 calls (125,000 cells) within their limits; with two cards or
+   more, also the dycore on a 1x2 mesh
+   over NCCL against one card, else a line that says why it did not run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with
+``{"ok": true, "device": {...}}``; the kernels' ``launches`` are slice 10's
+window, summed over its four ranks.  Without a CUDA device it exits with
 code 1 and prints no result.  It imports nothing of JAX.
 """
 
@@ -2156,6 +2178,357 @@ def wide_phase(dev, card, steps=3):
     return modes, launches, mie_path
 
 
+MESH10 = (2, 2)                # slice 10's mesh: four 50x50 blocks of config 4
+WINDOW10 = 20                  # steps 2..21: chem calls at 10 and 20
+# tests/test_parallel.py:165-169, the reference's full-step tolerances
+TOL10 = {"u": 5e-3, "v": 5e-3, "w": 5e-3, "t": 5e-3, "mu": 0.1, "ph": 0.2,
+         "qv": 1e-7, "qc": 1e-7, "nc": 5e2, "rthraten_sw": 1e-9, "rthraten_lw": 1e-9,
+         "chem_so4_a01": 1e-4, "chem_num_a01": 5e3, "chem_o3": 1e-6, "chem_no2": 1e-6}
+
+
+def _run10(sim, steps):
+    """Warm up 2 steps, then a window of `steps` from zeroed counts: (the
+    window's launches, exchanges and bytes sent, host ms per step)."""
+    sim.advance(2)
+    sim.sync()
+    mesh = sim.mesh
+    if mesh is not None:
+        mesh.barrier()
+        ex0, b0 = mesh.exchanges, mesh.bytes_sent
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.advance(steps)
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    ex, nbytes = (0, 0) if mesh is None else (mesh.exchanges - ex0, mesh.bytes_sent - b0)
+    return launches, ex, nbytes, wall * 1e3 / steps
+
+
+def slice10_rank(rank, device, steps, shape):
+    """One rank of slice 10's phase: config 4 on its 50x50 block of the 2x2
+    mesh (gloo; the ranks share the card), built from the global case
+    exactly as the single-block run builds it."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device(device)
+    mesh = make_mesh(*MESH10, device=dev)
+    cfg = _cfg4(*shape)
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    sim = Simulation(cfg, grid, _seed4(state), mesh=mesh)
+    del grid, state
+    torch.cuda.empty_cache()
+    launches, ex, nbytes, ms_step = _run10(sim, steps)
+    g = sim.gather_state()
+    on_path = on_path10(sim, f"slice 10 rank {rank}")
+    return {"rank": rank, "block": (mesh.iy, mesh.ix, sim.grid.ny, sim.grid.nx),
+            "launches": launches, "exchanges": ex, "bytes": nbytes, "ms_step": ms_step,
+            "chem_calls": sum(1 for n in range(2, 2 + steps) if n % sim.chem_every == 0),
+            "on_path": on_path,
+            "state": None if g is None else {k: v.numpy() for k, v in g.items()}}
+
+
+def on_path10(sim, label):
+    """The four kernels against their plain versions on one rank's own
+    inputs, at its block's shapes: every call of the scalar advection and
+    multi-tracer kernels in one main step, bitwise (`dycore_on_path`; the
+    limited multi-tracer calls go through the wrapper's seam grids and the
+    exchange of r_hi's ring, `tracers_kernel._seam_stage`), then the Mie
+    and ROS2 calls of one chem call, within their limits.  Every rank calls
+    it in the same order: the seam stage and the plain multi-tracer update
+    pad through the mesh.  Returns the calls compared and the errors."""
+    from wrfchem_arc_interactions_tpu_torch.chem import gas
+    from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel, ros2_kernel, tracers_kernel
+    with _Recorded(tracers_kernel, "_seam_stage") as seams:
+        dycore_on_path(lambda: sim.advance(1), label)
+    n_seam = len(seams["_seam_stage"])
+    del seams
+    if n_seam < 2:
+        raise RuntimeError(f"{label}: {n_seam} multi-tracer calls through the seam grids "
+                           "(the step's limited stage and its recheck expected)")
+    chem = sim._stepper("chem")
+    t_now = np.float32(sim.time_s)
+    # the gas integration's calls, recorded where the chem driver makes them
+    # (the kernel's wrapper keeps its own module name for its count)
+    gas_calls, integrate = [], gas.integrate
+
+    def recording(conc, k, dt_total, n_sub=None):
+        inputs = (conc.clone(), k.clone(), dt_total, n_sub)
+        out = integrate(conc, k, dt_total, n_sub)
+        gas_calls.append((inputs, out))
+        return out
+
+    gas.integrate = recording
+    try:
+        mie_inputs = capture_mie_inputs(lambda: chem(sim.state, sim.grid, t_now))
+    finally:
+        gas.integrate = integrate
+    if len(mie_inputs) != 4 or len(gas_calls) != 1:
+        raise RuntimeError(f"{label}: {len(mie_inputs)} Mie and {len(gas_calls)} gas "
+                           "integrations in one chem call, expected 4 and 1")
+    mie_err = max(max(_mie_check(mie_kernel, f"{label} bin {b}", *args))
+                  for b, args in enumerate(mie_inputs, start=1))
+    del mie_inputs
+    (conc, k, dt_total, n_sub), path_out = gas_calls[0]
+    kin = gas._kinetics()
+    if n_sub is None:
+        n_sub = max(1, int(np.ceil(dt_total / gas.SUBSTEP_TARGET_S)))
+    if not torch.equal(ros2_kernel.ros2_integrate(kin, conc, k, dt_total, n_sub), path_out):
+        raise RuntimeError(f"{label}: the ROS2 kernel at n_sub {n_sub} does not reproduce "
+                           "the path's gas integration")
+    err, max_abs, equal, err_vec = _ros2_compare(kin, ros2_kernel, conc, k, dt_total, n_sub)
+    return {"bitwise_calls": {name: ON_PATH[name][label] for name in ON_PATH},
+            "seam_stage_calls": n_seam, "mie_bins": 4, "mie_max_abs_err": mie_err,
+            "ros2_cells": int(conc.shape[1]), "ros2_max_abs_err": max_abs,
+            "ros2_max_rel_err": err, "ros2_bitwise": equal, "ros2_rel_err_vectorised": err_vec}
+
+
+def slice10_phase(dev, card, steps=WINDOW10, shape=(100, 100, 50)):
+    """Slice 10's main path: config 4 on a 2x2 mesh of four ranks sharing
+    the card over gloo (strips staged through the host), 2 warm-up steps
+    and a 20-step window, against one block on the card over the same 22
+    steps; per rank the launches of each kernel per main step and per chem
+    call, the exchanges and bytes per main step and ms/step.  Returns the
+    window's launches summed over the ranks, and the numbers."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.parallel import launch
+    cfg = _cfg4(*shape)
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    sim = Simulation(cfg, grid, _seed4(state), device=dev)
+    one_launches, _, _, one_ms = _run10(sim, steps)
+    one = {k: v.cpu().numpy() for k, v in sim.state.items()}
+    del sim, grid, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(slice10_rank, MESH10[0] * MESH10[1], "gloo",
+                         [str(dev)] * (MESH10[0] * MESH10[1]), args=(steps, shape))
+    spawn_s = time.perf_counter() - t0
+    got = ranks[0]["state"]
+    bad = [k for k, v in got.items() if not np.isfinite(v).all()]
+    if bad:
+        raise RuntimeError(f"slice 10: non-finite {bad} after {steps + 2} steps")
+    diffs = {k: float(np.abs(one[k].astype(np.float64) - got[k].astype(np.float64)).max())
+             for k in one}
+    bitwise = all(d == 0.0 for d in diffs.values())
+    print(f"slice 10: config 4 on a {MESH10[0]}x{MESH10[1]} mesh, {steps + 2} steps, "
+          f"gathered on rank 0, against one block on the card: every field bitwise "
+          f"{bitwise}; max|d| of the prognostic fields: "
+          + ", ".join(f"{k} {diffs[k]:.3g} (tol {t:g})" for k, t in TOL10.items()))
+    over = {k: diffs[k] for k, t in TOL10.items() if not diffs[k] < t}
+    if over:
+        raise RuntimeError(f"slice 10: 2x2 vs one block beyond tolerance: {over}")
+    for r in ranks:
+        o = r["on_path"]
+        for name, n in o["bitwise_calls"].items():
+            ON_PATH[name][f"slice 10 rank {r['rank']}"] = n
+        print(f"slice 10 rank {r['rank']}, kernels against their plain versions on the "
+              f"rank's own inputs: one main step's advect_scalar_5_3 "
+              f"{o['bitwise_calls']['advect_scalar_5_3']} calls and advect_tracers "
+              f"{o['bitwise_calls']['advect_tracers']} calls ({o['seam_stage_calls']} "
+              f"through the seam grids), bitwise; one chem call's mie_cheb_eval "
+              f"{o['mie_bins']} bins, max|d| {o['mie_max_abs_err']:.3g}, and ros2_integrate "
+              f"at {o['ros2_cells']} cells, max|a-b|/(|b|+1e3) {o['ros2_max_rel_err']:.3g}, "
+              f"bitwise {o['ros2_bitwise']}")
+    per_step = ("advect_scalar_5_3", "advect_tracers")
+    per_chem = ("mie_cheb_eval", "ros2_integrate")
+    chem_one = ranks[0]["chem_calls"]
+    for r in ranks:
+        c = r["launches"]
+        for k in per_step:
+            if c[k] != one_launches[k]:
+                raise RuntimeError(f"slice 10 rank {r['rank']}: {k} {c[k]} launches, one "
+                                   f"block {one_launches[k]}")
+        for k in per_chem:
+            if c[k] != one_launches[k] or c[k] < 1:
+                raise RuntimeError(f"slice 10 rank {r['rank']}: {k} {c[k]} launches, one "
+                                   f"block {one_launches[k]}")
+        iy, ix, by, bx = r["block"]
+        print(f"slice 10 rank {r['rank']} block ({iy}, {ix}) {by}x{bx}: per main step "
+              + ", ".join(f"{k} {c[k] / steps:g}" for k in per_step)
+              + "; per chem call "
+              + ", ".join(f"{k} {c[k] / r['chem_calls']:g}" for k in per_chem)
+              + f"; {r['exchanges'] / steps:g} exchanges, "
+              f"{r['bytes'] / steps / 2**20:.3f} MiB sent per main step; "
+              f"{r['ms_step']:.1f} ms/step (4 ranks share one card, strips staged "
+              f"through the host: not a scaling number; one block alone "
+              f"{one_ms:.1f} ms/step) [{card}]")
+    print(f"slice 10: spawn, case, {steps + 2} steps and gather of 4 ranks took "
+          f"{spawn_s:.1f} s; chem calls in the window {chem_one}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in one_launches}
+    numbers = {"mesh": list(MESH10), "window_steps": steps, "bitwise_vs_one_block": bitwise,
+               "max_abs_diff": {k: diffs[k] for k in TOL10},
+               "ranks": [{k: r[k] for k in ("rank", "block", "launches", "exchanges",
+                                            "bytes", "ms_step", "on_path")} for r in ranks],
+               "one_block_ms_step": one_ms, "launches_one_block": one_launches}
+    return launches, numbers
+
+
+def kernel_tracers_seams(dev, card, nt=107):
+    """K4 at block seams on the card: a 2x2 set of 50x50 blocks cut, with
+    true-image halos, out of config-4-like inputs (nt = 107, nz = 50), with
+    the limiter, flat and with slice 9's m2, on every boundary kind on the
+    outer sides; each block through `advect_tracers_seam`'s two grids (r_hi's
+    ring cut from the assembled FACTOR output, as the exchange brings it),
+    bitwise against the plain version on the whole domain.  Then one
+    block's seam stage timed beside the flat kernel's at the same shape."""
+    import ctypes
+    from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.ops import build, tracers_kernel
+    from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
+    from wrfchem_arc_interactions_tpu_torch.parallel.mesh import Mesh
+    grid, _ = ideal.make_case(_cfg4(), "squall2d_x", device=dev, bubble_amp=3.0)
+    args, pt, _ = tracer_inputs(dev, grid, nt)
+    q = args[0][..., 3:-3, 3:-3]
+    ru, rv = args[2][..., 3:-3, 3:-3], args[3][..., 3:-3, 3:-3]
+    phi, ww, mu_full, mu_new = args[1], args[4], args[5], args[6]
+    lib = build.load("advect_tracers")
+    fn = lib.advect_tracers_seam
+    fn.argtypes = tracers_kernel._SEAM_ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    by, bx = ny // 2, nx // 2
+    out_numbers = {}
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for g in (grid, _projected9(grid)):
+        label = "m2" if g.has_msf else "flat"
+        m2 = tracers_kernel.map_factor_sq(g)
+        for bc in (BCKind.PERIODIC, BCKind.OPEN, BCKind.SYMMETRIC, BCKind.SPECIFIED):
+            hx = HaloOps(bc, bc)
+            qp, rup, rvp = (hx.pad(a, 3) for a in (q, ru, rv))
+            ref = tracers_kernel.advect_tracers_reference(
+                qp, phi, rup, rvp, ww, mu_full, mu_new, g, hx, 6.0, pt=pt, pd=True, clip=True)
+            ring = {"phi": hx.pad(phi, 1), "ww": hx.pad(ww, 1),
+                    "m2": None if m2 is None else hx.pad(m2, 1)}
+            blocks = []
+            for rank in range(4):
+                mesh = Mesh(2, 2, rank, None, dev, "gloo")
+                y0, x0 = mesh.iy * by, mesh.ix * bx
+
+                def cut(a, h=0):
+                    return a[..., y0:y0 + by + 2 * h, x0:x0 + bx + 2 * h].contiguous()
+
+                b = {"q": cut(qp, 3), "ru": cut(rup, 3), "rv": cut(rvp, 3), "pt": cut(pt),
+                     "mu_full": cut(mu_full), "mu_new": cut(mu_new),
+                     "phi_r": cut(ring["phi"], 1), "ww_r": cut(ring["ww"], 1),
+                     "m2_r": None if m2 is None else cut(ring["m2"], 1),
+                     "r_hi": torch.empty((nt, nz, by, bx), device=dev),
+                     "out": torch.empty((nt, nz, by, bx), device=dev),
+                     "edges": tracers_kernel.edge_codes(
+                         HaloOps(bc, bc, mesh=mesh))}
+                blocks.append((y0, x0, b))
+
+            def seam(grid_no, b, r_ring):
+                return fn(grid_no, b["q"].data_ptr(), b["phi_r"].data_ptr(), b["pt"].data_ptr(),
+                          b["ru"].data_ptr(), b["rv"].data_ptr(), b["ww_r"].data_ptr(),
+                          b["mu_full"].data_ptr(), b["mu_new"].data_ptr(), g.rdnw.data_ptr(),
+                          ptr(b["m2_r"]), b["r_hi"].data_ptr(), ptr(r_ring),
+                          b["out"].data_ptr(), nt, nz, by, bx, float(g.rdx), float(g.rdy),
+                          6.0, 1, *b["edges"], stream)
+
+            for _, _, b in blocks:
+                if seam(tracers_kernel.FACTOR, b, None) != 0:
+                    raise RuntimeError("advect_tracers_seam: FACTOR grid refused")
+            r_all = torch.empty_like(ref)
+            for y0, x0, b in blocks:
+                r_all[..., y0:y0 + by, x0:x0 + bx] = b["r_hi"]
+            r_ring = hx.pad(r_all, 1)
+            for y0, x0, b in blocks:
+                b["r_ring"] = r_ring[..., y0:y0 + by + 2, x0:x0 + bx + 2].contiguous()
+                if seam(tracers_kernel.LIMITED, b, b["r_ring"]) != 0:
+                    raise RuntimeError("advect_tracers_seam: LIMITED grid refused")
+            torch.cuda.synchronize()
+            worst = 0.0
+            for y0, x0, b in blocks:
+                want = ref[..., y0:y0 + by, x0:x0 + bx]
+                worst = max(worst, float((b["out"] - want).abs().max()))
+                if not torch.equal(b["out"], want):
+                    raise RuntimeError(f"advect_tracers at seams ({label}, {bc.value}) block "
+                                       f"({y0}, {x0}): max|d| = {worst}, not bitwise")
+            print(f"advect_tracers at block seams (2x2 of {by}x{bx}, nt={nt}, nz={nz}, "
+                  f"{label}, {bc.value} outer sides, limiter and clip): bitwise equal to "
+                  f"the plain version on the whole domain in every block")
+            if bc == BCKind.OPEN:
+                y0, x0, b = blocks[0]
+                seam_ms = _device_ms(lambda: (seam(tracers_kernel.FACTOR, b, None),
+                                              seam(tracers_kernel.LIMITED, b, b["r_ring"])),
+                                     calls=10, trials=20)
+                phi_b = phi[..., y0:y0 + by, x0:x0 + bx].contiguous()
+                ww_b = ww[..., y0:y0 + by, x0:x0 + bx].contiguous()
+                flat_args = (b["q"], phi_b, b["ru"], b["rv"], ww_b, b["mu_full"], b["mu_new"],
+                             _block_grid(g, y0, x0, by, bx),
+                             HaloOps(BCKind.OPEN, BCKind.OPEN), 6.0)
+                flat_ms = _device_ms(lambda: tracers_kernel.advect_tracers(
+                    *flat_args, pt=b["pt"], pd=True, clip=True), calls=10, trials=20)
+                bound = _tracers_bound(nt, nz, by, bx, True, g.has_msf)
+                print(f"advect_tracers with the limiter at ({nt}, {nz}, {by}, {bx}), {label}: "
+                      f"seam grids (x tiles, ring-padded phi/ww/m2 and r_hi) "
+                      f"{seam_ms:.4f} ms, flat kernel on the same block (open sides) "
+                      f"{flat_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); the ring "
+                      f"exchanges not included [{card}]")
+                out_numbers[label] = {"seam_ms": seam_ms, "flat_ms": flat_ms,
+                                      "bound_ms": bound[0], "bound_by": bound[1],
+                                      "bitwise_all_kinds": True}
+            del ref, qp, rup, rvp, blocks, r_all, r_ring
+            torch.cuda.empty_cache()
+    return out_numbers
+
+
+def _block_grid(grid, y0, x0, by, bx):
+    """The (y0, x0) block of `grid` (its horizontal fields cut)."""
+    import dataclasses
+    from wrfchem_arc_interactions_tpu_torch.grid.grid import TENSOR_FIELDS
+    return dataclasses.replace(grid, **{
+        k: getattr(grid, k)[..., y0:y0 + by, x0:x0 + bx].contiguous()
+        for k in TENSOR_FIELDS if getattr(grid, k).dim() >= 2})
+
+
+def nccl_phase(dev):
+    """With two cards or more: the dycore-only case (slice 1's path,
+    config 3 without radiation and chemistry) on a 1x2 mesh over NCCL, one
+    card per rank, against one card.  On one card it says so and returns."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"slice 10 NCCL check (1x2 mesh, one card per rank): not run, this machine "
+              f"has {n} card and NCCL needs a card per rank")
+        return None
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.parallel import launch
+    cfg = _cfg3(rad_chem=False)
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    sim = Simulation(cfg, grid, state, device=dev)
+    sim.advance(10)
+    one = {k: v.cpu().numpy() for k, v in sim.state.items()}
+    got = launch.spawn(nccl_rank, 2, "nccl", ["cuda:0", "cuda:1"])[0]
+    diffs = {k: float(np.abs(one[k].astype(np.float64) - got[k]).max()) for k in one}
+    print("slice 10 NCCL check (1x2 mesh, cuda:0 and cuda:1, 10 dycore steps) against one "
+          "card: max|d| " + ", ".join(f"{k} {d:.3g}" for k, d in diffs.items()))
+    over = {k: diffs[k] for k, t in TOL10.items() if k in diffs and not diffs[k] < t}
+    if over:
+        raise RuntimeError(f"slice 10 NCCL: 1x2 vs one card beyond tolerance: {over}")
+    return diffs
+
+
+def nccl_rank(rank, device):
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(1, 2, device=device)
+    cfg = _cfg3(rad_chem=False)
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=device, bubble_amp=3.0)
+    sim = Simulation(cfg, grid, state, mesh=mesh)
+    sim.advance(10)
+    g = sim.gather_state()
+    return None if g is None else {k: v.numpy() for k, v in g.items()}
+
+
 def _profile(fn):
     """(device ms, kernel count, rows by kernel) of one profiled call."""
     from torch.autograd import DeviceType
@@ -2374,6 +2747,11 @@ def main(argv=None) -> int:
     item9_cross_checks(dev)
     torch.cuda.empty_cache()
     modes_wide, launches_wide, mie_wide = wide_phase(dev, card)
+    torch.cuda.empty_cache()
+    entries["advect_tracers"]["seam_50x50_nt107"] = kernel_tracers_seams(dev, card)
+    torch.cuda.empty_cache()
+    launches10, numbers10 = slice10_phase(dev, card)
+    numbers10["nccl_1x2"] = nccl_phase(dev)
     entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
     entries["advect_tracers"]["max_abs_err"] = max(
         entries["advect_tracers"]["max_abs_err"], *(m["max_abs_err"] for m in modes_wide.values()))
@@ -2383,14 +2761,23 @@ def main(argv=None) -> int:
         *(b["max_abs_err"] for path in ("config4_inputs", "slice6_inputs",
                                         "config3_1000x100_inputs")
           for b in entries["mie_cheb_eval"][path].values()))
+    for name, key in (("mie_cheb_eval", "mie_max_abs_err"),
+                      ("ros2_integrate", "ros2_max_abs_err")):
+        entries[name]["slice10_on_path_max_abs_err"] = max(
+            r["on_path"][key] for r in numbers10["ranks"])
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                           entries[name]["slice10_on_path_max_abs_err"])
     for name, by_path in ON_PATH.items():
         entries[name]["bitwise_on_path_calls"] = by_path
-    # "launches" is the count of this slice's main path, the slice-9 window
-    # (config 4 on a real-data domain), which runs all four kernels; the
-    # earlier paths' counts stand beside it
+    # "launches" is the count of this slice's main path, the slice-10 window
+    # (config 4 on a 2x2 mesh: the four ranks' launches summed), which runs
+    # all four kernels on every rank; the earlier paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches9[name]
-        entry["launches_by_path"] = {"slice9_window": launches9[name],
+        entry["launches"] = launches10[name]
+        entry["launches_by_path"] = {"slice10_window_4_ranks": launches10[name],
+                                     "slice10_window_by_rank": [
+                                         r["launches"][name] for r in numbers10["ranks"]],
+                                     "slice9_window": launches9[name],
                                      "slice8_window": launches8[name],
                                      "slice7_window": launches7[name],
                                      "slice6_window": launches6[name],
@@ -2398,10 +2785,11 @@ def main(argv=None) -> int:
                                      "config3_window": launches3[name],
                                      "slice1_10_steps": launches1[name],
                                      "config3_1000x100_3_steps": launches_wide[name]}
-        if launches9[name] < 1:
-            raise RuntimeError(f"{name} was not launched on slice 9's path")
+        if launches9[name] < 1 or min(entry["launches_by_path"]["slice10_window_by_rank"]) < 1:
+            raise RuntimeError(f"{name} was not launched on slice 9's path or on every "
+                               "rank of slice 10's")
     print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8,
-                      "slice9": numbers9}))
+                      "slice9": numbers9, "slice10": numbers10}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

@@ -199,12 +199,12 @@ def tracers_call(lib, args, pt, pd):
     out = torch.empty((nt, nz, nyp - 6, nxp - 6), device=q_pad.device)
     r_hi = torch.empty_like(out) if pd else None
     ptrs = [a.data_ptr() for a in (q_pad, phi, pt, ru, rv, ww, mu_full, mu_new, grid.rdnw)]
-    code = tracers_kernel._BC_CODE
+    edges = tracers_kernel.edge_codes(hx)
 
     def call():
         _checked(fn(*ptrs, None if r_hi is None else r_hi.data_ptr(), out.data_ptr(),
                     *out.shape, float(grid.rdx), float(grid.rdy), float(dts), int(pd),
-                    int(pd), code[hx.bc_x], code[hx.bc_y], _stream()), "advect_tracers")
+                    int(pd), *edges, _stream()), "advect_tracers")
         return out
     return call
 

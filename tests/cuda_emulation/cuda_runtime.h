@@ -84,6 +84,7 @@ using std::min;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaSuccess = 0;
+const int cudaErrorInvalidValue = 1;
 const int cudaErrorInvalidConfiguration = 9;
 const int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 const int cudaFuncAttributePreferredSharedMemoryCarveout = 9;

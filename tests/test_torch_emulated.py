@@ -20,7 +20,9 @@ to its plain PyTorch version:
 - ``csrc/advect_tracers.cu`` at the small shapes that stress its tile, its
   rings of planes and its slots, and at rows wider than one tile (its x
   tiles), on every lateral boundary kind (specified too), with and without
-  the limiter, on a flat grid and with a map factor;
+  the limiter, on a flat grid and with a map factor; and on the blocks of
+  process meshes, with seams on one to four sides and x tiles, against
+  the plain version on the whole domain;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
   substeps over a few blocks of its persistent grid.
 
@@ -55,6 +57,7 @@ from wrfchem_arc_interactions_tpu_torch.ops import (  # noqa: E402
     adv_kernel, build, mie_kernel, ros2_kernel, tracers_kernel,
 )
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 from test_torch_gas import polluted_start  # noqa: E402
 from test_torch_tracers import _boundary_cases, _grids, _inputs, _t  # noqa: E402
@@ -150,14 +153,13 @@ def _emulated_tracers(lib, case, pd, seed, msf=False):
         q_pad, f["phi"], ru, rv, f["ww"], f["mu_full"], f["mu_new"], tg, hx, 6.0,
         pt=f["pt"], pd=pd, clip=pd)
     out, r_hi = torch.full_like(ref, float("nan")), torch.full_like(ref, float("nan"))
-    code = tracers_kernel._BC_CODE
     m2 = tracers_kernel.map_factor_sq(tg)
     err = lib.advect_tracers(
         q_pad.data_ptr(), f["phi"].data_ptr(), f["pt"].data_ptr(), ru.data_ptr(),
         rv.data_ptr(), f["ww"].data_ptr(), f["mu_full"].data_ptr(), f["mu_new"].data_ptr(),
         tg.rdnw.data_ptr(), None if m2 is None else m2.data_ptr(), r_hi.data_ptr(),
         out.data_ptr(), *ref.shape, float(tg.rdx),
-        float(tg.rdy), 6.0, int(pd), int(pd), code[hx.bc_x], code[hx.bc_y], None)
+        float(tg.rdy), 6.0, int(pd), int(pd), *tracers_kernel.edge_codes(hx), None)
     assert err == 0
     return out, ref, f["q"]
 
@@ -193,6 +195,113 @@ def test_emulated_tracer_kernel_x_tiles_are_bitwise_its_plain_version(tracers_li
     out, ref, q = _emulated_tracers(tracers_lib, (2, 3, nx, bc, bc_y), pd, 17 + nx)
     assert float((ref - q).abs().max()) > 1e-3
     assert torch.equal(out, ref)
+
+
+# blocks of a process mesh (nz, ny, nx, bc_x, bc_y, mesh_y, mesh_x): one
+# seam a block (1, 2); three (x periodic over two blocks, and one y seam);
+# two, three and four on a 3 x 3 mesh with specified and open outer sides;
+# four everywhere (periodic over 2 x 2); blocks of 500 cells, wider than
+# one tile holds (x tiles); and slice 10's 50 x 50 block shape
+SEAM_CASES = ((3, 10, 12, "open", "open", 1, 2), (3, 10, 12, "periodic", "symmetric", 2, 2),
+              (2, 15, 18, "specified", "open", 3, 3), (2, 12, 12, "periodic", "periodic", 2, 2),
+              (2, 3, 1000, "open", "periodic", 1, 2), (2, 50, 100, "periodic", "open", 1, 2))
+
+
+@pytest.mark.parametrize("msf", [False, True], ids=["flat", "m2"])
+@pytest.mark.parametrize("pd", [False, True])
+@pytest.mark.parametrize("case", SEAM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_tracer_kernel_at_block_seams_is_bitwise(tracers_lib, case, pd, msf):
+    """Every block of a mesh, its halos the true images of its neighbours'
+    cells (the window of the global pad), bitwise as the plain version on
+    the whole domain: without the limiter through `advect_tracers` with
+    the blocks' edge codes; with it through `advect_tracers_seam`'s two
+    grids, phi_old, ww and m2 with their one-cell ring, and r_hi's ring
+    exchanged between the grids (here cut from the global r_hi)."""
+    nz, ny, nx, bc_x, bc_y, my, mx = case
+    _, tg = _grids(nz, ny, nx)
+    if msf:
+        tg = _projected(tg, 3 + nx)
+    f = {k: _t(v) for k, v in _inputs(tg, seed=11 + nx).items()}
+    hx = HaloOps(bc_x=BCKind(bc_x), bc_y=BCKind(bc_y))
+    g3 = {k: hx.pad(f[k], 3) for k in ("q", "ru", "rv")}
+    ref = tracers_kernel.advect_tracers_reference(
+        g3["q"].contiguous(), f["phi"], g3["ru"].contiguous(), g3["rv"].contiguous(),
+        f["ww"], f["mu_full"], f["mu_new"], tg, hx, 6.0, pt=f["pt"], pd=pd, clip=pd)
+    m2 = tracers_kernel.map_factor_sq(tg)
+    ring = {"phi": hx.pad(f["phi"], 1), "ww": hx.pad(f["ww"], 1),
+            "m2": None if m2 is None else hx.pad(m2, 1)}
+    by, bx = ny // my, nx // mx
+    lib = tracers_lib
+    lib.advect_tracers_seam.argtypes = tracers_kernel._SEAM_ARGTYPES
+    lib.advect_tracers_seam.restype = ctypes.c_int
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    blocks = []
+    for rank in range(my * mx):
+        mesh = Mesh(my, mx, rank, None, torch.device("cpu"), "gloo")
+        edges = tracers_kernel.edge_codes(dataclasses.replace(hx, mesh=mesh))
+        y0, x0 = mesh.iy * by, mesh.ix * bx
+
+        def cut(a, h=0):
+            return a[..., y0:y0 + by + 2 * h, x0:x0 + bx + 2 * h].contiguous()
+
+        b = {k: cut(v, 3) for k, v in g3.items()}
+        b.update({k: cut(f[k]) for k in ("phi", "ww", "mu_full", "mu_new", "pt")})
+        b.update({f"{k}_r": None if v is None else cut(v, 1) for k, v in ring.items()})
+        b["m2"] = None if m2 is None else cut(m2)
+        b["out"] = torch.full((2, nz, by, bx), float("nan"))
+        b["r_hi"] = torch.full_like(b["out"], float("nan"))
+        if pd:
+            assert tracers_kernel.SEAM in edges or my * mx == 1
+        blocks.append((mesh, edges, b))
+
+    def seam_grid(g, b, edges, r_ring):
+        return lib.advect_tracers_seam(
+            g, b["q"].data_ptr(), b["phi_r"].data_ptr(), b["pt"].data_ptr(),
+            b["ru"].data_ptr(), b["rv"].data_ptr(), b["ww_r"].data_ptr(),
+            b["mu_full"].data_ptr(), b["mu_new"].data_ptr(), tg.rdnw.data_ptr(),
+            ptr(b["m2_r"]), b["r_hi"].data_ptr(), ptr(r_ring), b["out"].data_ptr(), 2, nz,
+            by, bx, float(tg.rdx), float(tg.rdy), 6.0, int(pd), *edges, None)
+
+    for mesh, edges, b in blocks:
+        if pd:
+            assert seam_grid(tracers_kernel.FACTOR, b, edges, None) == 0
+        else:
+            assert lib.advect_tracers(
+                b["q"].data_ptr(), b["phi"].data_ptr(), b["pt"].data_ptr(),
+                b["ru"].data_ptr(), b["rv"].data_ptr(), b["ww"].data_ptr(),
+                b["mu_full"].data_ptr(), b["mu_new"].data_ptr(), tg.rdnw.data_ptr(),
+                ptr(b["m2"]), None, b["out"].data_ptr(), 2, nz, by, bx, float(tg.rdx),
+                float(tg.rdy), 6.0, 0, 0, *edges, None) == 0
+    if pd:
+        # the FACTOR grids' r_hi, assembled and padded by one: each block's
+        # ring is what the exchange brings
+        r_all = torch.empty_like(ref)
+        for mesh, _, b in blocks:
+            r_all[..., mesh.iy * by:(mesh.iy + 1) * by, mesh.ix * bx:(mesh.ix + 1) * bx] = \
+                b["r_hi"]
+        r_ring = hx.pad(r_all, 1)
+        for mesh, edges, b in blocks:
+            y0, x0 = mesh.iy * by, mesh.ix * bx
+            ring_b = r_ring[..., y0:y0 + by + 2, x0:x0 + bx + 2].contiguous()
+            assert seam_grid(tracers_kernel.LIMITED, b, edges, ring_b) == 0
+    assert float((ref - f["q"]).abs().max()) > 1e-3
+    for mesh, _, b in blocks:
+        want = ref[..., mesh.iy * by:(mesh.iy + 1) * by, mesh.ix * bx:(mesh.ix + 1) * bx]
+        assert torch.equal(b["out"], want), f"block {mesh.iy, mesh.ix}"
+
+
+def test_emulated_tracer_kernel_refuses_a_seam_in_the_one_call_interface(tracers_lib):
+    """With the limiter a seam's factors come from the neighbouring block,
+    so `advect_tracers` refuses seam edge codes with pd on (the wrapper
+    takes `advect_tracers_seam` there) and inconsistent periodic codes."""
+    z = torch.zeros(1)
+    args = [z.data_ptr()] * 12 + [1, 1, 4, 4, 1.0, 1.0, 1.0]
+    seam = tracers_kernel.SEAM
+    assert tracers_lib.advect_tracers(*args, 1, 1, seam, 1, 1, 1, None) == 1
+    assert tracers_lib.advect_tracers(*args, 1, 1, 0, 1, 1, 1, None) == 1
 
 
 @pytest.fixture(scope="module")

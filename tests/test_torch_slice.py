@@ -38,6 +38,7 @@ from wrfchem_arc_interactions_tpu_torch.grid import grid_from_numpy  # noqa: E40
 from wrfchem_arc_interactions_tpu_torch.models import ideal as tideal  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation as TSim  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.models.lateral_bc import constant_boundary  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.registry.state import state_from_numpy  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -251,9 +252,10 @@ print("OK")
 ])
 def test_unported_options_raise(change, case, item):
     """What the port does not carry yet raises, naming the ROADMAP item that
-    brings it (item 10, a device mesh); the options of item 9 (specified
-    boundaries, the polar filter, analysis nudging, the hill2d_x case over
-    terrain) build and step once, and their own tests hold them to the
+    brings it; the options of item 9 (specified boundaries, the polar
+    filter, analysis nudging, the hill2d_x case over terrain) and a mesh
+    layout in ``cfg.parallel`` (item 10: the mesh itself is `Simulation`'s
+    argument) build and step once, and their own tests hold them to the
     reference."""
     _, tc = _cfgs(nx=8, ny=4, nz=6)
     for group, fields in change.items():
@@ -261,7 +263,7 @@ def test_unported_options_raise(change, case, item):
         sub = dataclasses.replace(sub, **{field: type(getattr(sub, field))(value)
                                           for field, value in fields})
         tc = tc.replace(**{group: sub})
-    if item != "item 9":
+    if item not in ("item 9", "item 10"):
         with pytest.raises(NotImplementedError, match=item):
             tideal.make_case(tc, case, device="cpu")
         return
@@ -275,15 +277,17 @@ def test_unported_options_raise(change, case, item):
 @pytest.mark.parametrize("arg,item", [("mesh", "item 10"), ("boundary", "item 9"),
                                       ("fdda", "item 9")])
 def test_unported_simulation_arguments_raise(arg, item):
-    """`Simulation` takes the reference's mesh argument as None only, and
-    raises naming the ROADMAP item that brings it (item 10); the boundary
-    and fdda arguments of item 9 take a `LateralBoundary` (moved to the
-    Simulation's device) and step."""
+    """`Simulation` takes the reference's mesh argument (item 10: a
+    `parallel.mesh.Mesh`, here the 1 x 1 one that needs no process group;
+    a nest on a mesh raises, naming item 10b) and the boundary and fdda
+    arguments of item 9 (a `LateralBoundary`, moved to the Simulation's
+    device); each steps."""
     _, tc = _cfgs(nx=8, ny=4, nz=6)
     grid, state = tideal.make_case(tc, "squall2d_x", device="cpu", bubble_amp=3.0)
-    if item != "item 9":
-        with pytest.raises(NotImplementedError, match=item):
-            TSim(tc, grid, state, device="cpu", **{arg: object()})
+    if arg == "mesh":
+        sim = TSim(tc, grid, state, device="cpu", mesh=make_mesh(1, 1, device="cpu"))
+        sim.advance(1)
+        assert all(bool(torch.isfinite(v).all()) for v in sim.state.values())
         return
     tc = tc.replace(fdda=dataclasses.replace(tc.fdda, grid_fdda=True))
     target = constant_boundary({k: state[k] for k in ("u", "v", "t", "qv")})

@@ -112,6 +112,29 @@
 //   instructions per slot and level with the limiter (no fused multiply-add,
 //   so that it rounds like its plain version), and the loads around them.
 //
+// Seams (a block of a process mesh).  Each side of the block has an edge
+// code: the domain's boundary kind, or SEAM where a neighbouring block
+// lies (a periodic axis split over several blocks has seams on both
+// sides).  Without the limiter a seam changes nothing: the grid reads only
+// its padded inputs, whose halos the exchange filled.  With it, a face at
+// a seam needs the factors of the neighbour's edge cells.  Two designs
+// were open: (b) the TPU kernel's, halos of 4 (q, ru, rv) and 2 (phi, ww)
+// and r_hi formed on the seam ring in grid FACTOR; or (a) the reference
+// plain path's, which exchanges both factor rings (hx.pad(r, 1)).  This
+// kernel takes (a) (`advect_tracers_seam`, the RING instances): phi, ww
+// and m2 come with their exchanged one-cell ring, so grid FACTOR forms r_lo
+// on the seam rings from the neighbours' true values exactly as the
+// neighbour does on its own cells; the caller exchanges the one-cell ring
+// of grid FACTOR's r_hi, and grid LIMITED reads it.  Why (a): the limiter's
+// grids already fill the shared memory that (b)'s wider planes (two more
+// rows and columns of q, ru and rv, and of r_hi) would need, so (b) would
+// cost tile height on every launch, seam or not; (a) leaves the one-block
+// instances as they were and costs an exchange of an nt x nz x perimeter
+// ring per limited stage (and the rings of phi_old, ww and m2).  The RING
+// instances always run on the grid of x tiles, whose slots carry a halo
+// column on each side, and read phi, ww, m2 and the ring of r_hi at a
+// held slot's own place in the (ny+2) x (nx+2) layout.
+//
 // Arithmetic: every operation follows the plain PyTorch version
 // (ops/tracers_kernel.py::advect_tracers_reference) in order, and the
 // library is built with --fmad=false, so the two round alike.
@@ -151,10 +174,11 @@ struct Args {
   const float* mu_new;
   const float* rdnw;
   const float* m2;       // may be null (flat grid)
-  float* r_hi;           // written by FACTOR, read by LIMITED
+  float* r_hi;           // written by FACTOR (and read by LIMITED unless RING)
+  const float* r_ring;   // RING: r_hi with its exchanged one-cell ring, read by LIMITED
   float* out;
   int nt, nz, ny, nx;
-  int bcx, bcy;          // 0 periodic, 1 open, 2 symmetric
+  int edge[4];           // west, east, south, north: an Edge
   int ty, tiles;         // rows of a tile, tiles over y
   int tx, xtiles;        // x tiles: cells of a tile, tiles over x (XT)
   int pitch, ulog;       // XT: row pitch of a plane, log2 of copy units a row
@@ -218,12 +242,24 @@ __device__ __forceinline__ float flux1(float vel, float qm1, float q0) {
   return vel * (vel > 0.0f ? qm1 : q0);
 }
 
-// Cell index c in [-1, n] of a boundary-padded axis -> interior cell.
-__host__ __device__ __forceinline__ int bc_map(int c, int n, int bc) {
+// What lies beyond a side of the block: the domain's lateral boundary
+// (periodic, open or symmetric; specified takes open), or a SEAM with
+// the neighbouring block of a process mesh.
+enum Edge : int { PERIODIC = 0, OPEN = 1, SYMMETRIC = 2, SEAM = 3 };
+
+// Whether the cells beyond a side hold data of their own (a periodic wrap
+// or a neighbouring block) rather than a mapped copy of the block's own.
+__host__ __device__ __forceinline__ bool edge_held(int e) { return e == PERIODIC || e == SEAM; }
+
+// Cell index c in [-1, n] of a boundary-padded axis -> interior cell, by
+// the edge code of the side it lies beyond (lo for c < 0, else hi).  Not
+// called for a seam.
+__host__ __device__ __forceinline__ int bc_map(int c, int n, int lo, int hi) {
   if (c >= 0 && c < n) return c;
-  if (bc == 0) return c < 0 ? c + n : c - n;     // periodic: wrap
-  if (bc == 1) return c < 0 ? 0 : n - 1;         // open: replicate the edge
-  return c < 0 ? -c : 2 * (n - 1) - c;           // symmetric: reflect
+  const int e = c < 0 ? lo : hi;
+  if (e == PERIODIC) return c < 0 ? c + n : c - n;     // wrap
+  if (e == OPEN) return c < 0 ? 0 : n - 1;             // replicate the edge
+  return c < 0 ? -c : 2 * (n - 1) - c;                 // symmetric: reflect
 }
 
 // Limiter factor: min(1, avail / outflow) where there is outflow, else 1;
@@ -327,14 +363,19 @@ enum : int {
 //            update.
 // XT: the tile is one of a.xtiles x tiles of the row (its planes carry the
 // x halo and a row pitch of their own); else it spans the row.  MSF: a.m2
-// scales the horizontal divergences and outflows.
-template <int MODE, int CPT, bool XT, bool MSF>
+// scales the horizontal divergences and outflows.  RING (with XT, limiter
+// grids only): phi, ww and m2 carry a one-cell ring, (ny+2) x (nx+2) a
+// plane, and LIMITED reads r_hi from a.r_ring, laid out alike; every cell
+// that holds data (the block's, and its halo ring beyond a periodic side or
+// a seam) reads them at its own place in the ring layout.
+template <int MODE, int CPT, bool XT, bool MSF, bool RING>
 __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, int clip) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool PD = MODE != PLAIN;
   constexpr int QA = q_ahead(MODE), QR = QA + 2, VA = v_ahead(MODE), VR = VA + 1;
   const int nx = a.nx, ny = a.ny, nz = a.nz;
   const int px = nx + 2 * PAD, pyx = (ny + 2 * PAD) * px, nyx = ny * nx;
+  const int hyx = RING ? (ny + 2) * (nx + 2) : nyx;      // a plane of phi, ww, r_ring
   const int j0 = (blockIdx.x % a.tiles) * a.ty;
   const int t = XT ? blockIdx.x / a.tiles / a.xtiles : blockIdx.x / a.tiles;
   const int i0 = XT ? (blockIdx.x / a.tiles % a.xtiles) * a.tx : 0;
@@ -353,27 +394,34 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
   const float* const q_t = a.q + (size_t)t * nz * pyx + (size_t)j0 * px + i0;
   const float* const ru_t = a.ru + (size_t)(j0 + 2) * px + i0;   // one halo row below the tile
   const float* const rv_t = a.rv + (size_t)(j0 + 2) * px + i0;
-  const float* const phi_t = a.phi + (size_t)t * nz * nyx;
+  const float* const phi_t = a.phi + (size_t)t * nz * hyx;
   const float* const pt_t = a.pt == nullptr ? nullptr : a.pt + (size_t)t * nz * nyx;
   float* const r_hi_t = PD ? a.r_hi + (size_t)t * nz * nyx : nullptr;
+  const float* const r_in_t = MODE != LIMITED ? nullptr
+                              : RING ? a.r_ring + (size_t)t * nz * hyx : r_hi_t;
   float* const out_t = MODE != FACTOR ? a.out + (size_t)t * nz * nyx : nullptr;
 
-  // a halo row outside the domain holds data only on a periodic boundary
-  // (from the padding, or the far side); otherwise its factors are read at
-  // the row of the tile (or the other halo row) that the boundary maps it to
-  auto held = [&](int j) { return (j >= 0 && j < ny) || a.bcy == 0; };
-  auto plane_row = [&](int j) { return (held(j) ? j : bc_map(j, ny, a.bcy)) - j0 + 1; };
+  const int e_w = a.edge[0], e_e = a.edge[1], e_s = a.edge[2], e_n = a.edge[3];
+  // a halo row outside the block holds data only beyond a periodic side
+  // (from the padding, or the far side) or a seam; otherwise its factors
+  // are read at the row of the tile (or the other halo row) that the
+  // boundary maps it to
+  auto held = [&](int j) { return (j >= 0 && j < ny) || edge_held(j < 0 ? e_s : e_n); };
+  auto plane_row = [&](int j) { return (held(j) ? j : bc_map(j, ny, e_s, e_n)) - j0 + 1; };
   // donor slots across an edge, relative to the face's slot
-  const int west_edge = bc_map(-1, nx, a.bcx);             // donor of face 0, flux > 0
-  const int east_edge = bc_map(nx, nx, a.bcx) - nx;        // donor of face nx, flux <= 0
+  const int west_edge = bc_map(-1, nx, e_w, e_e);          // donor of face 0, flux > 0
+  const int east_edge = bc_map(nx, nx, e_w, e_e) - nx;     // donor of face nx, flux <= 0
   const int south_edge = (plane_row(j0 - 1) - 1) * w;      // donor of row 1's face
   const int north_edge = (plane_row(j0 + rows) - (rows + 1)) * w;
   // x tiles: slot column c is cell i0 + c - 1; its halo columns hold data
-  // inside the domain or on a periodic boundary, and only the domain's
-  // edges map a donor through the boundary
-  const bool x_mapped = XT && a.bcx != 0;
+  // inside the block or beyond a periodic side or a seam, and only the
+  // block's other edges map a donor through the boundary
+  const bool west_mapped = XT && !edge_held(e_w), east_mapped = XT && !edge_held(e_e);
 
-  int flags[CPT], oq[CPT], og[CPT];
+  // og: a cell's index in the (ny, nx) arrays (without RING also a held
+  // halo slot's mapped cell); oh (RING): a held slot's index in the ring
+  // layout, where phi, ww, m2 and the read r_hi are (`hidx`, below).
+  int flags[CPT], oq[CPT], og[CPT], oh[RING ? CPT : 1] = {};
   float mu_f[CPT], mu_n[CPT], m2s[CPT];
 #pragma unroll
   for (int m = 0; m < CPT; ++m) {
@@ -384,24 +432,31 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
     if (s < (rows + 2) * w) {
       const bool in_tile = rr >= 1 && rr <= rows;
       const bool cell_col = XT ? c >= 1 && c <= tw : i < nx;
-      const bool held_col = XT ? (i >= 0 && i < nx) || a.bcx == 0 : i < nx;
+      const bool held_col = XT ? (i >= 0 && i < nx) || edge_held(i < 0 ? e_w : e_e) : i < nx;
       if (in_tile && (!XT || c >= 1)) f |= IS_X;
       if (rr >= 1 && cell_col) f |= IS_Y;
       if (in_tile && cell_col) f |= IS_CELL;
       if (held_col && held(j)) f |= IS_HELD;
-      if (XT ? x_mapped && i == 0 && c == 1 : i == 0) f |= FIRST;
-      if (XT ? x_mapped && i == nx && c == tw + 1 : i == nx) f |= LAST;
+      if (XT ? west_mapped && i == 0 && c == 1 : i == 0) f |= FIRST;
+      if (XT ? east_mapped && i == nx && c == tw + 1 : i == nx) f |= LAST;
       if (rr == 1) f |= SOUTH;
       if (rr == rows + 1) f |= NORTH;
     }
     flags[m] = f;
     // a slot past the last row reads that row's q
     oq[m] = XT ? (rr + 2) * pp + c + 2 : (rr + 2) * px + i + PAD;
-    og[m] = (f & IS_HELD) ? bc_map(j, ny, a.bcy) * nx + (XT ? bc_map(i, nx, a.bcx) : i) : 0;
+    if (RING) {
+      og[m] = (f & IS_CELL) ? j * nx + i : 0;
+      oh[m] = (f & IS_HELD) ? (j + 1) * (nx + 2) + i + 1 : 0;
+    } else {
+      og[m] = (f & IS_HELD) ? bc_map(j, ny, e_s, e_n) * nx + (XT ? bc_map(i, nx, e_w, e_e) : i)
+                            : 0;
+    }
     mu_f[m] = (f & IS_CELL) && MODE != FACTOR && pt_t != nullptr ? a.mu_full[og[m]] : 0.0f;
     mu_n[m] = (f & IS_CELL) && MODE != FACTOR ? a.mu_new[og[m]] : 1.0f;
-    m2s[m] = MSF && (f & IS_HELD) ? a.m2[og[m]] : 1.0f;
+    m2s[m] = MSF && (f & IS_HELD) ? a.m2[RING ? oh[m] : og[m]] : 1.0f;
   }
+  auto hidx = [&](int m) { return RING ? oh[m] : og[m]; };
 
   // plane `lev` of a ring, where its copy put element 0
   auto q_at = [&](int lev) {
@@ -448,14 +503,14 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
     for (int m = 0; m < CPT; ++m) {
       const int s = threadIdx.x + m * THREADS;
       if (MODE == LIMITED && k + 2 < nz && (flags[m] & IS_HELD))
-        copy_async(rhs + ((k + 2) % R_RING) * l.sp + s, r_hi_t + (size_t)(k + 2) * nyx + og[m]);
+        copy_async(rhs + ((k + 2) % R_RING) * l.sp + s, r_in_t + (size_t)(k + 2) * hyx + hidx(m));
       const int need = PD ? IS_HELD : IS_CELL;
       ww_n[m] = (flags[m] & need) && k + 3 >= 1 && k + 3 < nz
-                    ? a.ww[(size_t)(k + 3) * nyx + og[m]] : 0.0f;
+                    ? a.ww[(size_t)(k + 3) * hyx + hidx(m)] : 0.0f;
       phi_n[m] = PD && (flags[m] & IS_HELD) && k + 2 < nz
-                     ? phi_t[(size_t)(k + 2) * nyx + og[m]] : 0.0f;
+                     ? phi_t[(size_t)(k + 2) * hyx + hidx(m)] : 0.0f;
       const bool cell = k >= 0 && (flags[m] & IS_CELL);
-      phi_0[m] = cell ? phi_t[(size_t)k * nyx + og[m]] : 0.0f;
+      phi_0[m] = cell ? phi_t[(size_t)k * hyx + hidx(m)] : 0.0f;
       pt_0[m] = cell && MODE != FACTOR && pt_t != nullptr ? pt_t[(size_t)k * nyx + og[m]] : 0.0f;
     }
 
@@ -632,10 +687,11 @@ int widest_row_of(int ny) {
   return lo;
 }
 
-template <int MODE, int CPT, bool XT, bool MSF>
+template <int MODE, int CPT, bool XT, bool MSF, bool RING>
 int launch_msf(Args a, int ty, int clip, cudaStream_t s) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      stage_kernel<MODE, CPT, XT, MSF>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  const cudaError_t attr = cudaFuncSetAttribute(stage_kernel<MODE, CPT, XT, MSF, RING>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                SMEM_MAX);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   a.ty = ty;
   a.tiles = (a.ny + ty - 1) / ty;
@@ -643,14 +699,29 @@ int launch_msf(Args a, int ty, int clip, cudaStream_t s) {
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t bytes =
       (size_t)layout(MODE, ty, a.nx, CPT * THREADS, XT, a.tx, a.pitch).total * sizeof(float);
-  stage_kernel<MODE, CPT, XT, MSF><<<(unsigned)blocks, THREADS, bytes, s>>>(a, clip);
+  stage_kernel<MODE, CPT, XT, MSF, RING><<<(unsigned)blocks, THREADS, bytes, s>>>(a, clip);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, int CPT, bool XT>
+template <int MODE, int CPT, bool XT, bool RING = false>
 int launch(Args a, int ty, int clip, cudaStream_t s) {
-  return a.m2 != nullptr ? launch_msf<MODE, CPT, XT, true>(a, ty, clip, s)
-                         : launch_msf<MODE, CPT, XT, false>(a, ty, clip, s);
+  return a.m2 != nullptr ? launch_msf<MODE, CPT, XT, true, RING>(a, ty, clip, s)
+                         : launch_msf<MODE, CPT, XT, false, RING>(a, ty, clip, s);
+}
+
+// The grid of x tiles of four slots a thread (tiles of even width over nx).
+template <int MODE, bool RING>
+int launch_xt(Args a, int clip, cudaStream_t s) {
+  int tx = 0;
+  const int ty = tile_rows<MODE, 4>(a, true, &tx);
+  if (ty == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  a.xtiles = (a.nx + tx - 1) / tx;
+  a.tx = (a.nx + a.xtiles - 1) / a.xtiles;
+  const int px = a.nx + 2 * PAD;
+  a.pitch = a.tx + 2 * PAD + ((px - a.tx - 2 * PAD) & 3);   // = px modulo 4
+  for (a.ulog = 0; (1 << a.ulog) < ((a.tx + 2 * PAD) >> 2) + 6; ++a.ulog) {
+  }
+  return launch<MODE, 4, true, RING>(a, ty, clip, s);
 }
 
 // Four slots a thread where a tile of two rows spans the row that way, else
@@ -661,16 +732,31 @@ int launch_mode(Args a, int clip, cudaStream_t s) {
   if (ty > 0) return launch<MODE, 4, false>(a, ty, clip, s);
   ty = tile_rows<MODE, 8>(a, false, nullptr);
   if (ty > 0) return launch<MODE, 8, false>(a, ty, clip, s);
-  int tx = 0;
-  ty = tile_rows<MODE, 4>(a, true, &tx);
-  if (ty == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  a.xtiles = (a.nx + tx - 1) / tx;
-  a.tx = (a.nx + a.xtiles - 1) / a.xtiles;          // tiles of even width over nx
-  const int px = a.nx + 2 * PAD;
-  a.pitch = a.tx + 2 * PAD + ((px - a.tx - 2 * PAD) & 3);   // = px modulo 4
-  for (a.ulog = 0; (1 << a.ulog) < ((a.tx + 2 * PAD) >> 2) + 6; ++a.ulog) {
-  }
-  return launch<MODE, 4, true>(a, ty, clip, s);
+  return launch_xt<MODE, false>(a, clip, s);
+}
+
+Args make_args(const float* q, const float* phi, const float* pt, const float* ru,
+               const float* rv, const float* ww, const float* mu_full, const float* mu_new,
+               const float* rdnw, const float* m2, float* r_hi, const float* r_ring,
+               float* out, int nt, int nz, int ny, int nx, float rdx, float rdy, float dts,
+               const int edge[4]) {
+  Args a{};
+  a.q = q; a.phi = phi; a.pt = pt; a.ru = ru; a.rv = rv; a.ww = ww;
+  a.mu_full = mu_full; a.mu_new = mu_new; a.rdnw = rdnw; a.m2 = m2;
+  a.r_hi = r_hi; a.r_ring = r_ring; a.out = out;
+  a.nt = nt; a.nz = nz; a.ny = ny; a.nx = nx;
+  for (int e = 0; e < 4; ++e) a.edge[e] = edge[e];
+  a.xtiles = 1;
+  a.rdx = rdx; a.rdy = rdy; a.dts = dts;
+  return a;
+}
+
+bool edges_valid(const int edge[4]) {
+  for (int e = 0; e < 4; ++e)
+    if (edge[e] < PERIODIC || edge[e] > SEAM) return false;
+  // a periodic axis wraps within the block on both sides or neither
+  return (edge[0] == PERIODIC) == (edge[1] == PERIODIC) &&
+         (edge[2] == PERIODIC) == (edge[3] == PERIODIC);
 }
 
 }  // namespace
@@ -678,20 +764,52 @@ int launch_mode(Args a, int clip, cudaStream_t s) {
 // Launches on `stream` (one grid without the limiter, two with it) and
 // returns the first cudaGetLastError() that is not 0.  `pt` and `m2` may be
 // null; `r_hi` is (nt, nz, ny, nx) scratch, unused (may be null) without
-// the limiter.
+// the limiter.  west .. north: the Edge beyond each side of the block.  A
+// seam is refused with the limiter: its factors come from the neighbouring
+// block (advect_tracers_seam).
 extern "C" int advect_tracers(const float* q, const float* phi, const float* pt,
                               const float* ru, const float* rv, const float* ww,
                               const float* mu_full, const float* mu_new,
                               const float* rdnw, const float* m2, float* r_hi, float* out,
                               int nt, int nz, int ny, int nx, float rdx, float rdy,
-                              float dts, int pd, int clip, int bcx, int bcy,
-                              void* stream) {
-  const Args a{q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, m2, r_hi, out,
-               nt, nz, ny, nx, bcx, bcy, 0, 0, 0, 1, 0, 0, rdx, rdy, dts};
+                              float dts, int pd, int clip, int west, int east, int south,
+                              int north, void* stream) {
+  const int edge[4] = {west, east, south, north};
+  if (!edges_valid(edge)) return static_cast<int>(cudaErrorInvalidValue);
+  if (pd && (west == SEAM || east == SEAM || south == SEAM || north == SEAM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, m2, r_hi, nullptr,
+                           out, nt, nz, ny, nx, rdx, rdy, dts, edge);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!pd) return launch_mode<PLAIN>(a, clip, s);
   const int err = launch_mode<FACTOR>(a, clip, s);
   return err != 0 ? err : launch_mode<LIMITED>(a, clip, s);
+}
+
+// One grid of the limited update on a block of a process mesh (RING):
+// grid 1 (FACTOR) writes r_hi (nt, nz, ny, nx); the caller then gives it
+// its one-cell ring from the neighbouring blocks (r_ring, (nt, nz, ny+2,
+// nx+2)) and launches grid 2 (LIMITED), which reads r_ring and writes
+// out.  phi (nt, nz, ny+2, nx+2), ww (nz+1, ny+2, nx+2) and m2 (ny+2,
+// nx+2, or null) carry the same exchanged ring; the other arrays are as
+// in advect_tracers.  Always the grid of x tiles, whose slots include a
+// halo column on each side.
+extern "C" int advect_tracers_seam(int grid, const float* q, const float* phi,
+                                   const float* pt, const float* ru, const float* rv,
+                                   const float* ww, const float* mu_full,
+                                   const float* mu_new, const float* rdnw, const float* m2,
+                                   float* r_hi, const float* r_ring, float* out, int nt,
+                                   int nz, int ny, int nx, float rdx, float rdy, float dts,
+                                   int clip, int west, int east, int south, int north,
+                                   void* stream) {
+  const int edge[4] = {west, east, south, north};
+  if (!edges_valid(edge)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, m2, r_hi, r_ring,
+                           out, nt, nz, ny, nx, rdx, rdy, dts, edge);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (grid == FACTOR) return launch_xt<FACTOR, true>(a, clip, s);
+  if (grid == LIMITED) return launch_xt<LIMITED, true>(a, clip, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The widest x row (cells) that every grid of a call spans with one tile

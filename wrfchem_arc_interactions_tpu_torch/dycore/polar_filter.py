@@ -8,7 +8,8 @@ whole domain.  Each poleward row is filtered in zonal wavenumber space:
 modes k > k_max(lat) = (nx/2) cos(lat)/cos(lat_f) are truncated, so the
 timestep is governed by the latitude `fft_filter_lat` instead of the pole;
 scalars take a squared-cosine rolloff instead of the sharp cut, against
-Gibbs ringing.
+Gibbs ringing.  On a process mesh the x axis must stay whole (the
+reference's own rule: each row's transform spans the globe); y may split.
 
 The whole (nz, ny, nx) field is filtered in one batched ``torch.fft.rfft
 -> mask -> irfft`` with a precomputed (ny, nx/2+1) mask, in float32 as the
@@ -63,10 +64,20 @@ class PolarFilter:
     take the mean latitude of the two mass rows beside the face, the
     southern face the first row's)."""
 
-    def __init__(self, grid: Grid, filter_lat_deg: float, nx: int):
+    def __init__(self, grid: Grid, filter_lat_deg: float, nx: int, hx=None):
+        if hx is not None and hx.mesh_x > 1:
+            raise ValueError("the polar filter transforms whole rows: the x axis must not "
+                             f"be decomposed (mesh_x = {hx.mesh_x}); use a (mesh_y, 1) mesh")
         lat_m = grid.xlat[:, 0]
         lat_v = 0.5 * (lat_m + torch.roll(lat_m, 1))
         lat_v[0] = lat_m[0]
+        if hx is not None and hx.mesh_y > 1:
+            # the southern face of a block above the domain's first row
+            # lies between its first row and the row below, on the block
+            # beneath (every rank exchanges)
+            below = hx.pad(grid.xlat[None], 1)[0, 0, 1]
+            if hx.mesh.iy > 0:
+                lat_v[0] = 0.5 * (lat_m[0] + below)
         self.mask_m = filter_mask(lat_m, nx, filter_lat_deg)
         self.mask_m_taper = filter_mask(lat_m, nx, filter_lat_deg, taper=True)
         self.mask_v = filter_mask(lat_v, nx, filter_lat_deg)

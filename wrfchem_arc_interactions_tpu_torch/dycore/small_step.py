@@ -152,11 +152,13 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
 
         # --- forward horizontal momentum ----------------------------------
         uv = overlap_stencil(hx, {"p": p_d, "ph": ph, "mu": mu, "mudf": mudf},
-                             1, mom_fn, {**mom_consts, "u": u, "v": v})
+                             1, mom_fn, {**mom_consts, "u": u, "v": v},
+                             overlap=dyn.overlap_halo)
         u, v = uv["u"], uv["v"]
 
         # --- divergence + theta fluxes ------------------------------------
-        dd = overlap_stencil(hx, {"u": u, "v": v}, 1, divth_fn, divth_consts)
+        dd = overlap_stencil(hx, {"u": u, "v": v}, 1, divth_fn, divth_consts,
+                             overlap=dyn.overlap_halo)
         div = dd["div"]
 
         # --- column mass and omega'' --------------------------------------

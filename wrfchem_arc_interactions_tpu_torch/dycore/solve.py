@@ -179,7 +179,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
 
     w_damp = _w_damp_profile(grid, cfg)
     rdn_w = _rdn_w(grid)
-    polar = (PolarFilter(grid, dyn.fft_filter_lat, grid.nx)
+    polar = (PolarFilter(grid, dyn.fft_filter_lat, grid.nx, hx)
              if dyn.fft_filter_lat < 90.0 else None)
     # the time-invariant grid fields the stencils read in the halo: the base
     # state over terrain, the map factors of a projected grid (padded once a

@@ -15,7 +15,7 @@ through the halo padding.  The patterns live in the model state.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,12 +30,17 @@ _SQRT12 = float(np.sqrt(np.float32(12.0)))
 
 
 def white_noise(shape: Tuple[int, int], step: int, seed: int = 0,
-                device=None) -> torch.Tensor:
-    """(ny, nx) unit-variance float32 noise from a hash of the cell index
-    and the step (one device: the local index is the global one)."""
+                device=None, hx: Optional[HaloOps] = None) -> torch.Tensor:
+    """(ny, nx) unit-variance float32 noise from a hash of the GLOBAL cell
+    index and the step: on a block of `hx`'s mesh the index is offset by
+    the block's place, so the noise is the same however the domain is
+    decomposed."""
     ny, nx = shape
     jy = torch.arange(ny, dtype=torch.int64, device=device)[:, None]
     ix = torch.arange(nx, dtype=torch.int64, device=device)[None, :]
+    if hx is not None and hx.mesh is not None:
+        jy = jy + ny * hx.mesh.iy
+        ix = ix + nx * hx.mesh.ix
     const = ((int(step) & _M32) * 0xC2B2AE3D + (seed & _M32) * 0x27D4EB2F) & _M32
     h = _hash_u32((_mul32(jy, 0x9E3779B1) + _mul32(ix, 0x85EBCA77) + const) & _M32)
     u = h.to(torch.float32) * (1.0 / 4294967296.0)
@@ -77,7 +82,7 @@ def evolve_pattern(pattern: torch.Tensor, hx: HaloOps, dt: float, step: int,
     """AR(1) update toward a fresh smoothed noise field."""
     phi = np.exp(np.float32(-dt / AR1_TAU_S))
     amp = np.sqrt(np.maximum(np.float32(1.0) - phi * phi, np.float32(1e-12)))
-    fresh = smooth(white_noise(pattern.shape[-2:], step, seed, pattern.device), hx)
+    fresh = smooth(white_noise(pattern.shape[-2:], step, seed, pattern.device, hx), hx)
     return float(phi) * pattern + float(amp) * fresh
 
 

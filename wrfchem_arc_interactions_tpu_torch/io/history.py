@@ -16,6 +16,8 @@ exact resume.
 
 A dump leaves the device in one pass: every field's copy is queued into
 one pinned host buffer, then one device synchronisation closes them all.
+Under a process mesh `models.driver.Simulation` gathers the state to rank
+0 first, which writes the global fields alone (`parallel.sharded.gather`).
 """
 
 from __future__ import annotations
@@ -133,10 +135,13 @@ def write_restart(path: str, cfg: Config, state: State, step_idx: int,
         np.savez(path, **data)
 
 
-def read_restart(path: str, cfg: Config, state: State):
+def read_restart(path: str, cfg: Config, state: State, mesh=None):
     """Load a restart into a copy of `state`; returns (state, step, time).
     Each field read comes back on its state tensor's device and in its
-    dtype; fields absent from the file keep their values."""
+    dtype; fields absent from the file keep their values.  The file holds
+    the global domain: with a process `mesh` (`parallel.mesh`) every rank
+    reads it and keeps its block (`state` is the rank's block), so a
+    restart written on one decomposition reads on any other."""
     if path.endswith(".nc"):
         f, attrs = ncio.read_netcdf(path)
         step = int(attrs["_step_idx"])
@@ -150,8 +155,10 @@ def read_restart(path: str, cfg: Config, state: State):
     for n in restart_names(cfg):
         if n in f:
             ref = state[n]
-            out[n] = torch.from_numpy(np.ascontiguousarray(f[n])).to(
-                device=ref.device, dtype=ref.dtype)
+            a = torch.from_numpy(np.ascontiguousarray(f[n]))
+            if mesh is not None:
+                a = mesh.cut(a)
+            out[n] = a.to(device=ref.device, dtype=ref.dtype)
     return out, step, time_s
 
 

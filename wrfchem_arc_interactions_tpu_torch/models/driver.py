@@ -24,10 +24,21 @@ post-dynamics physics, at the step's start time as the reference does;
 the caller swaps ``sim.boundary`` for the next segment as model time
 crosses its end.  With ``grid_fdda`` the analysis nudging
 (`models.fdda`) joins the held physics tendencies before the RK loop.
+
+On a process mesh (``mesh=parallel.mesh.make_mesh(...)``, one block per
+rank) every rank passes the same global grid, state, boundary, emissions
+and nudging target; the `Simulation` keeps the rank's block of each
+(`parallel.sharded.place`) and steps it with the mesh's halos.  The
+steppers and alarms are the same.  The output streams gather the state to
+rank 0, which alone writes (the same bytes as a run on one block); the
+tslist points are recorded by the rank that owns them and gathered at the
+end of every `advance`.  `gather_state` brings the global state to rank 0.
+`step_times`, `phase_times` and `mean_step_time` are this rank's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Dict, List, Mapping, Optional
@@ -45,16 +56,17 @@ from wrfchem_arc_interactions_tpu_torch.io import history as hio
 from wrfchem_arc_interactions_tpu_torch.io.auxinput import EmissionStream
 from wrfchem_arc_interactions_tpu_torch.models.fdda import apply_nudging
 from wrfchem_arc_interactions_tpu_torch.models.lateral_bc import make_specified_bc
-from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
+from wrfchem_arc_interactions_tpu_torch.parallel.sharded import (
+    gather, halo_ops_for, place, place_fields,
+)
 from wrfchem_arc_interactions_tpu_torch.physics.driver import post_dynamics, pre_dynamics
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import radiation_driver
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
+from wrfchem_arc_interactions_tpu_torch.utils.checks import all_finite
 from wrfchem_arc_interactions_tpu_torch.utils.clock import ModelClock
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
 from wrfchem_arc_interactions_tpu_torch.utils.logging import log
-from wrfchem_arc_interactions_tpu_torch.utils.support import (
-    SLICE_MESH, check_config, unported,
-)
+from wrfchem_arc_interactions_tpu_torch.utils.support import check_config
 
 # pending tslist values are brought to the host at least this often
 _TS_PENDING_MAX = 1024
@@ -76,18 +88,28 @@ class Simulation:
         `boundary` (a `models.lateral_bc.LateralBoundary`) is required with
         specified lateral boundaries; `fdda` (the same kind of two-snapshot
         target) is the analysis that ``cfg.fdda.grid_fdda`` nudges toward.
-        Both are moved to the device, also when set later.  `mesh` is
-        accepted as None only."""
+        Both are moved to the device, also when set later.  `mesh` (a
+        `parallel.mesh.Mesh`) runs this rank's block of the global inputs,
+        on the mesh's device unless `device` says otherwise."""
         check_config(cfg)
-        if mesh is not None:
-            raise unported("Simulation on a device mesh", SLICE_MESH)
         if not (emissions is None or isinstance(emissions, (Mapping, EmissionStream))):
             raise TypeError(f"emissions must be a dict of (ny, nx) fluxes or an "
                             f"EmissionStream, not {type(emissions).__name__}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None and device is None
+                                     else device)
         self.cfg = cfg
-        self.grid = grid.to(self.device)
-        self.state = {k: v.to(self.device) for k, v in state.items()}
+        self._ny, self._nx = grid.ny, grid.nx          # the global domain
+        if mesh is not None:
+            if self.device != mesh.device:
+                raise ValueError(f"device {self.device} is not the mesh's {mesh.device}")
+            self.state, self.grid = place(state, grid, mesh, cfg)
+            # the diagnostics stream reads the global grid on rank 0
+            self._grid_out = grid.to("cpu") if mesh.rank == 0 else None
+        else:
+            self.grid = grid.to(self.device)
+            self.state = {k: v.to(self.device) for k, v in state.items()}
+            self._grid_out = self.grid
         self.boundary = boundary
         # analysis-nudging target, active when cfg.fdda.grid_fdda is set
         self.fdda = fdda if cfg.fdda.grid_fdda else None
@@ -96,23 +118,23 @@ class Simulation:
             if boundary is None:
                 raise ValueError("specified lateral boundaries need a LateralBoundary")
             self.spec_bc = make_specified_bc(
-                cfg, self.grid, names=("u", "v", "w", "t", "mu", "ph") + cfg.moist_species())
+                cfg, self.grid, names=("u", "v", "w", "t", "mu", "ph") + cfg.moist_species(),
+                mesh=mesh)
         self._stream_snaps = None
         if isinstance(emissions, EmissionStream):
             self.emissions = emissions
             self._stream_snaps = [
-                {k: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
-                 for k, v in snap.items()} for snap in emissions.snaps]
+                self._place({k: torch.from_numpy(np.asarray(v, np.float32))
+                             for k, v in snap.items()}) for snap in emissions.snaps]
         else:
-            self.emissions = (None if emissions is None
-                              else {k: v.to(self.device) for k, v in emissions.items()})
+            self.emissions = None if emissions is None else self._place(emissions)
         self.check_nans = check_nans
         self.output_dir = output_dir
         self.dt = cfg.time_control.dt
         self.time_s = 0.0
         self.step_idx = 0
         self.step_times: List[float] = []
-        self.hx = HaloOps(bc_x=cfg.dynamics.bc_x, bc_y=cfg.dynamics.bc_y)
+        self.hx = halo_ops_for(cfg, mesh)
         # calendar clock for the solar geometry and the log's timestamps
         self.clock = ModelClock(cfg.time_control.start_date)
         self._solar_off = self.clock.utc_offset_s()
@@ -131,7 +153,21 @@ class Simulation:
         self.chem_every = max(1, round(cfg.chem.chemdt_s / self.dt)) \
             if cfg.chem.chem_opt.value != "none" else 0
         self._steppers: Dict[str, Callable] = {}
-        self._init_ts()
+        self._init_ts(grid.mub)
+
+    def _place(self, fields: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Global fields on the device: this rank's block under a mesh."""
+        if self.mesh is None:
+            return {k: v.to(self.device) for k, v in fields.items()}
+        return place_fields(fields, self.mesh, self._ny, self._nx)
+
+    def _place_window(self, bdy):
+        """A `LateralBoundary` (two global snapshots) on the device."""
+        if bdy is None:
+            return None
+        if self.mesh is None:
+            return bdy.to(self.device)
+        return dataclasses.replace(bdy, lo=self._place(bdy.lo), hi=self._place(bdy.hi))
 
     @property
     def boundary(self):
@@ -139,7 +175,7 @@ class Simulation:
 
     @boundary.setter
     def boundary(self, bdy):
-        self._boundary = None if bdy is None else bdy.to(self.device)
+        self._boundary = self._place_window(bdy)
 
     @property
     def fdda(self):
@@ -147,7 +183,7 @@ class Simulation:
 
     @fdda.setter
     def fdda(self, target):
-        self._fdda = None if target is None else target.to(self.device)
+        self._fdda = self._place_window(target)
 
     def _solar_time(self, t_s: np.float32):
         """(UTC seconds, julian day) of model time `t_s`, in float32 in the
@@ -169,7 +205,7 @@ class Simulation:
                     s = dyn_step(s, g, cfg, hx, dt, tend)
                     s = post_dynamics(s, g, cfg, dt)
                     if self.spec_bc is not None:
-                        s = self.spec_bc.apply(s, self.boundary, t_s, dt)
+                        s = self.spec_bc.apply(s, self.boundary, t_s, dt, hx=hx)
                     return s
             elif key == "rad":
                 def fn(s, g, t_s):
@@ -232,7 +268,7 @@ class Simulation:
             self.step_times.append(elapsed)
             self.step_idx += 1
             self.time_s += self.dt
-            if self.check_nans and not bool(torch.isfinite(self.state["t"]).all()):
+            if self.check_nans and not bool(all_finite(self.state["t"], self.hx)):
                 raise FloatingPointError(
                     f"NaN in theta at step {self.step_idx} (t={self.time_s}s)")
             log(f"Timing for main: time {self.clock.timestamp(self.time_s)} "
@@ -242,6 +278,8 @@ class Simulation:
             self._write_output()
             if on_step is not None:
                 on_step(self)
+        if self.mesh is not None:
+            self._ts_materialise()
 
     def _close_phase(self, phase: str, t0: float) -> float:
         self.sync()
@@ -249,26 +287,43 @@ class Simulation:
         self.phase_times[phase] += t1 - t0
         return t1
 
+    def gather_state(self, dst: int = 0) -> Optional[State]:
+        """The global state on the host of mesh rank `dst` (None on the
+        other ranks; every rank must call it).  Without a mesh, host
+        copies of the state."""
+        return gather(self.state, self.mesh, dst)
+
     def _write_output(self):
-        """The history, restart and auxhist alarms of the step just taken."""
+        """The history, restart and auxhist alarms of the step just taken.
+        Under a mesh the state is gathered to rank 0, which writes."""
         n, out = self.step_idx, self.output_dir
-        if self.hist_every and n % self.hist_every == 0:
-            hio.write_history(f"{out}/hist_{n:06d}{hio.default_extension()}", self.cfg, self.grid,
-                              self.state, self.time_s)
-        if self.rst_every and n % self.rst_every == 0:
-            hio.write_restart(f"{out}/restart_{n:06d}{hio.default_extension()}", self.cfg, self.state,
-                              n, self.time_s)
-        if self.aux_every and n % self.aux_every == 0:
-            diags.write_diags(f"{out}/auxdiag_{n:06d}{hio.default_extension()}", self.cfg, self.grid,
-                              self.state, self.time_s)
+        hist = self.hist_every and n % self.hist_every == 0
+        rst = self.rst_every and n % self.rst_every == 0
+        aux = self.aux_every and n % self.aux_every == 0
+        if not (hist or rst or aux):
+            return
+        state = self.state if self.mesh is None else self.gather_state()
+        if state is None:
+            return
+        ext = hio.default_extension()
+        if hist:
+            hio.write_history(f"{out}/hist_{n:06d}{ext}", self.cfg, self._grid_out, state,
+                              self.time_s)
+        if rst:
+            hio.write_restart(f"{out}/restart_{n:06d}{ext}", self.cfg, state, n, self.time_s)
+        if aux:
+            diags.write_diags(f"{out}/auxdiag_{n:06d}{ext}", self.cfg, self._grid_out, state,
+                              self.time_s)
 
     # -- tslist: per-step surface series at registered (label, j, i) points
 
-    def _init_ts(self):
+    def _init_ts(self, mub_global: torch.Tensor):
         """The points' indices on the device and the base column mass at
         each on the host.  Each step gathers the points' values into one
         small device tensor; the host reads them only when `ts_series` is
-        read or written."""
+        read or written.  Under a mesh a rank records the points of its
+        block (zeros for the others), and `_ts_materialise` takes each
+        point from the rank that owns it."""
         self._ts_points = tuple(self.cfg.time_control.ts_points)
         self._ts_rows: Dict[str, list] = {label: [] for label, _, _ in self._ts_points}
         self._ts_pending: list = []
@@ -276,9 +331,14 @@ class Simulation:
             return
         jj = [j for _, j, _ in self._ts_points]
         ii = [i for _, _, i in self._ts_points]
-        self._ts_j = torch.tensor(jj, device=self.device)
-        self._ts_i = torch.tensor(ii, device=self.device)
-        mub = self.grid.mub.cpu().numpy()
+        by, bx = self.grid.ny, self.grid.nx
+        mx = 1 if self.mesh is None else self.mesh.mesh_x
+        self._ts_owner = [(j // by) * mx + i // bx for j, i in zip(jj, ii)]
+        rank = 0 if self.mesh is None else self.mesh.rank
+        self._ts_j = torch.tensor([j % by for j in jj], device=self.device)
+        self._ts_i = torch.tensor([i % bx for i in ii], device=self.device)
+        self._ts_mine = torch.tensor([o == rank for o in self._ts_owner], device=self.device)
+        mub = mub_global.cpu().numpy()
         self._ts_mub = [float(mub[j, i]) for j, i in zip(jj, ii)]
         # gathered per point: these fields at the surface (rainnc and qv
         # where the state has them), then |w| max over the column
@@ -291,6 +351,8 @@ class Simulation:
         j, i = self._ts_j, self._ts_i
         vals = torch.cat([torch.stack(planes)[:, j, i],
                           s["w"][:, j, i].abs().amax(0, keepdim=True)])
+        if self.mesh is not None:
+            vals = torch.where(self._ts_mine, vals, torch.zeros_like(vals))
         self._ts_pending.append((self.time_s, vals))
         if len(self._ts_pending) >= _TS_PENDING_MAX:
             self._ts_materialise()
@@ -300,7 +362,13 @@ class Simulation:
         dict per point and step) in one host copy."""
         if not self._ts_pending:
             return
-        vals = torch.stack([v for _, v in self._ts_pending]).cpu().numpy()
+        vals = torch.stack([v for _, v in self._ts_pending])
+        if self.mesh is not None:
+            # every rank's points; each point from the rank that owns it
+            parts = [p.cpu() for p in self.mesh.all_gather(vals)]
+            vals = torch.stack([parts[o][:, :, p] for p, o in enumerate(self._ts_owner)],
+                               dim=-1)
+        vals = vals.cpu().numpy()
         p_top = self.grid.p_top
         for (time_s, _), v in zip(self._ts_pending, vals):
             for p, (label, _, _) in enumerate(self._ts_points):

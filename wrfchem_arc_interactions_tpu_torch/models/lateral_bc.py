@@ -24,9 +24,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind
+from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike
 
@@ -91,13 +91,6 @@ def zone_masks(ny: int, nx: int, spec_zone: int = 1, relax_zone: int = 4,
     return spec, w
 
 
-def _edge_pad1(a: torch.Tensor) -> torch.Tensor:
-    """Pad the trailing (y, x) axes by one edge-replicated cell."""
-    shape = a.shape
-    a4 = F.pad(a.reshape(-1, 1, shape[-2], shape[-1]), (1, 1, 1, 1), mode="replicate")
-    return a4.reshape(shape[:-2] + a4.shape[-2:])
-
-
 @dataclasses.dataclass(frozen=True)
 class SpecifiedBC:
     """The specified/relaxation boundary operator.
@@ -113,8 +106,15 @@ class SpecifiedBC:
     spec_names: Tuple[str, ...]
     relax_names: Tuple[str, ...]
 
-    def apply(self, state: State, bdy: LateralBoundary, time_s, dt) -> State:
-        """The state with the Davies zones applied toward `bdy` at `time_s`."""
+    def apply(self, state: State, bdy: LateralBoundary, time_s, dt,
+              hx: Optional[HaloOps] = None) -> State:
+        """The state with the Davies zones applied toward `bdy` at `time_s`.
+        On a block of a process mesh pass the model's `hx` (and the
+        block's masks and boundary data): the deviation's Laplacian then
+        takes its halo from the neighbouring blocks at seams, and
+        edge-replicates only at the domain's edge."""
+        ring = HaloOps(bc_x=BCKind.OPEN, bc_y=BCKind.OPEN,
+                       mesh=None if hx is None else hx.mesh)
         tgt = bdy.at_time(time_s)
         out = dict(state)
         f1 = self.relax_w / (10.0 * dt)
@@ -128,8 +128,9 @@ class SpecifiedBC:
             if name in self.relax_names:
                 dev = t - q
                 # 5-point Laplacian of the deviation, edge-replicated at the
-                # domain boundary (so it vanishes on the outermost ring)
-                devp = _edge_pad1(dev)
+                # domain boundary (so it vanishes on the outermost ring),
+                # exchanged at block seams
+                devp = ring.pad(dev, 1)
                 lap = (devp[..., 1:-1, 2:] + devp[..., 1:-1, :-2]
                        + devp[..., 2:, 1:-1] + devp[..., :-2, 1:-1]
                        - 4.0 * dev)
@@ -139,9 +140,11 @@ class SpecifiedBC:
 
 
 def make_specified_bc(cfg, grid, names: Optional[Tuple[str, ...]] = None,
-                      dtype: torch.dtype = torch.float32) -> SpecifiedBC:
+                      dtype: torch.dtype = torch.float32, mesh=None) -> SpecifiedBC:
     """The operator of `cfg`'s specified sides, its masks on `grid`'s
-    device in `dtype` (float32, as the reference keeps them)."""
+    device in `dtype` (float32, as the reference keeps them).  The masks
+    are made on the global domain; with a process `mesh` each rank keeps
+    its block of them."""
     d = cfg.domain
     dyn = cfg.dynamics
     x_on = dyn.bc_x == BCKind.SPECIFIED
@@ -153,7 +156,10 @@ def make_specified_bc(cfg, grid, names: Optional[Tuple[str, ...]] = None,
     relax = tuple(n for n in names if n != "ph")
 
     def put(a):
-        return torch.from_numpy(a).to(dtype=dtype, device=grid.device)
+        t = torch.from_numpy(a)
+        if mesh is not None:
+            t = mesh.cut(t)
+        return t.to(dtype=dtype, device=grid.device)
 
     return SpecifiedBC(spec_mask=put(spec), relax_w=put(w), spec_names=tuple(names),
                        relax_names=relax)

@@ -27,7 +27,8 @@ solution averaged over each parent cell.
   terrain, as in the reference.
 
 The child shares the parent's vertical levels and physics configuration,
-the reference's constraint.
+the reference's constraint.  A nest on a process mesh (the reference
+forwards ``mesh=`` to both Simulations) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from wrfchem_arc_interactions_tpu_torch.grid.grid import make_grid
 from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
 from wrfchem_arc_interactions_tpu_torch.models.lateral_bc import LateralBoundary
 from wrfchem_arc_interactions_tpu_torch.registry.state import build_state, restart_names
+from wrfchem_arc_interactions_tpu_torch.utils.support import SLICE_MESH, unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +150,8 @@ class NestedSimulation:
                  theta_of_z: Callable, feedback: bool = False,
                  forced_names: Optional[Tuple[str, ...]] = None,
                  p_surf: Optional[float] = None, **sim_kw):
+        if sim_kw.get("mesh") is not None:
+            raise unported("a nest on a process mesh", SLICE_MESH)
         self.spec = spec
         self.feedback = feedback
         self.parent = Simulation(cfg, grid, state, **sim_kw)

@@ -39,6 +39,28 @@ x halo in its planes and one more column of factors on each side; at or
 below that width the grid is the one-tile grid.  Rows of any width run,
 bitwise as at one tile.
 
+On a block of a process mesh (`parallel.mesh`) each side of the block
+has an edge code: the lateral boundary's kind, or a SEAM where a
+neighbouring block lies (a periodic axis split over several blocks has
+seams on both sides).  Without the limiter the kernel reads only its
+padded inputs, so seams change nothing.  With it, a face at a seam needs
+the factors of the neighbour's edge cells, which the neighbour computes.
+The plain version gets them by exchanging both factor rings (`hx.pad(r,
+1)` in `advection.limit_low_order` and `pd_limit`).  The kernel takes the
+same route (design (a): the reference plain path's), in two grids with an
+exchange between them (`_seam_stage`): the wrapper passes phi_old, ww and
+m2 with their exchanged one-cell ring, so that grid FACTOR forms r_lo on
+the seam rings from the neighbours' true values, as the neighbour itself
+does; grid FACTOR writes r_hi, the wrapper exchanges its one-cell ring,
+and grid LIMITED reads that ring.  Both grids run on the grid of x tiles,
+whose slots carry a halo column on each side.  The other route (the TPU
+kernel's, halos of 4 and r_hi formed on the seam ring in grid FACTOR)
+needs no exchange between the grids but a wider tile plane in a shared
+memory that the limiter's grids already fill; this one costs one
+exchange of an nt x nz x perimeter ring per limited stage (and the rings
+of phi_old, ww and m2), and keeps the kernel's arithmetic as it was, so
+that it stays bitwise equal to its plain version.
+
 `advect_tracers` launches the kernel for CUDA tensors and runs
 `advect_tracers_reference` for CPU tensors; it never falls back from one to
 the other.  ``advect_tracers.launches`` counts the grids launched.
@@ -61,9 +83,19 @@ from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 GRIDS_PLAIN = 1          # grids of one call without the limiter
 GRIDS_LIMITED = 2        # ... with it: the r_hi grid and the update grid
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_SEAM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                  + [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _BC_CODE = {BCKind.PERIODIC: 0, BCKind.OPEN: 1, BCKind.SYMMETRIC: 2,
             BCKind.SPECIFIED: 1}
+SEAM = 3                 # the edge code of a side where a neighbouring block lies
+FACTOR, LIMITED = 1, 2   # the limiter's two grids (advect_tracers_seam's `grid`)
+
+
+def edge_codes(hx: HaloOps) -> tuple:
+    """The kernel's edge code of each side of the block (west, east,
+    south, north)."""
+    return tuple(SEAM if kind == "seam" else _BC_CODE[bc] for kind, bc in hx.edge_sides())
 
 
 def map_factor_sq(grid: Grid) -> Optional[torch.Tensor]:
@@ -127,6 +159,32 @@ def _check(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, rdnw, m2, pt, hx
     return nt, nz, ny, nx
 
 
+def _seam_stage(fn, q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, grid: Grid,
+                hx: HaloOps, dts: float, pt, m2, clip: bool, out, edges, stream):
+    """The limited update on a block with a seam: grid FACTOR on the
+    ring-padded phi_old, ww and m2, the exchange of r_hi's ring, grid
+    LIMITED.  Returns the first error code that is not 0."""
+    nt, nz, ny, nx = out.shape
+    phi_r, ww_r = hx.pad(phi_old, 1), hx.pad(ww, 1)
+    m2_r = None if m2 is None else hx.pad(m2, 1)
+    r_hi = torch.empty_like(out)
+
+    def grid_(g, r_ring):
+        return fn(g, q_pad.data_ptr(), phi_r.data_ptr(), None if pt is None else pt.data_ptr(),
+                  ru_pad.data_ptr(), rv_pad.data_ptr(), ww_r.data_ptr(), mu_full.data_ptr(),
+                  mu_new.data_ptr(), grid.rdnw.data_ptr(),
+                  None if m2_r is None else m2_r.data_ptr(), r_hi.data_ptr(),
+                  None if r_ring is None else r_ring.data_ptr(), out.data_ptr(),
+                  nt, nz, ny, nx, float(grid.rdx), float(grid.rdy), float(dts), int(clip),
+                  *edges, stream)
+
+    err = grid_(FACTOR, None)
+    if err != 0:
+        return err
+    r_ring = hx.pad(r_hi, 1)
+    return grid_(LIMITED, r_ring)
+
+
 def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
                    grid: Grid, hx: HaloOps, dts: float,
                    pt: Optional[torch.Tensor] = None, pd: bool = False,
@@ -147,24 +205,32 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
                                         mu_new, grid, hx, dts, pt, pd, clip)
     if q_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {q_pad.device}")
-    fn = build.load("advect_tracers").advect_tracers
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib = build.load("advect_tracers")
     out = torch.empty((nt, nz, ny, nx), dtype=torch.float32, device=q_pad.device)
-    r_hi = torch.empty_like(out) if pd else None
+    edges = edge_codes(hx)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(q_pad.device):
         stream = torch.cuda.current_stream(q_pad.device).cuda_stream
-        err = fn(q_pad.data_ptr(), phi_old.data_ptr(), ptr(pt), ru_pad.data_ptr(),
-                 rv_pad.data_ptr(), ww.data_ptr(), mu_full.data_ptr(),
-                 mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(m2), ptr(r_hi),
-                 out.data_ptr(),
-                 nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
-                 float(dts), int(pd), int(clip), _BC_CODE[hx.bc_x], _BC_CODE[hx.bc_y],
-                 stream)
+        if pd and SEAM in edges:
+            fn = lib.advect_tracers_seam
+            fn.argtypes = _SEAM_ARGTYPES
+            fn.restype = ctypes.c_int
+            err = _seam_stage(fn, q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new, grid,
+                              hx, dts, pt, m2, clip, out, edges, stream)
+        else:
+            fn = lib.advect_tracers
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+            r_hi = torch.empty_like(out) if pd else None
+            err = fn(q_pad.data_ptr(), phi_old.data_ptr(), ptr(pt), ru_pad.data_ptr(),
+                     rv_pad.data_ptr(), ww.data_ptr(), mu_full.data_ptr(),
+                     mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(m2), ptr(r_hi),
+                     out.data_ptr(),
+                     nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
+                     float(dts), int(pd), int(clip), *edges, stream)
     if err != 0:
         raise RuntimeError(f"advect_tracers launch failed: cudaError {err}")
     advect_tracers.launches += GRIDS_LIMITED if pd else GRIDS_PLAIN

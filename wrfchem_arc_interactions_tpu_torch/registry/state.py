@@ -1,9 +1,14 @@
 """State construction from the field table (port of the JAX package's
-`registry/state.py`): the state is a plain ``dict[str, torch.Tensor]``."""
+`registry/state.py`): the state is a plain ``dict[str, torch.Tensor]``.
+
+`partition_spec` says which axes of a field split over a process mesh
+(`parallel.mesh`): y over the mesh's "my" axis, x over "mx", z and any
+band, bin or soil axis whole on every rank.  Horizontal staggering does not
+change array sizes, so every split is even."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +31,23 @@ def build_state(cfg: Config, device: DeviceLike,
 
 def spec_index(cfg: Config) -> Dict[str, FieldSpec]:
     return {s.name: s for s in field_table(cfg)}
+
+
+PartitionSpec = Tuple[Optional[str], ...]
+
+
+def partition_spec(spec: FieldSpec, mesh_axes: Tuple[str, str] = ("my", "mx")) -> PartitionSpec:
+    """One entry per axis of the field: the mesh axis it splits over, or
+    None where it stays whole (the vertical is never decomposed)."""
+    parts = [None for _ in spec.extra]
+    for d in spec.dims:
+        parts.append(mesh_axes[0] if d == "y" else mesh_axes[1] if d == "x" else None)
+    return tuple(parts)
+
+
+def state_partition_specs(cfg: Config,
+                          mesh_axes: Tuple[str, str] = ("my", "mx")) -> Dict[str, PartitionSpec]:
+    return {s.name: partition_spec(s, mesh_axes) for s in field_table(cfg)}
 
 
 def restart_names(cfg: Config) -> Tuple[str, ...]:

@@ -2,9 +2,11 @@
 CFL-violation and NaN detection that aborts with a location.
 
 `stability_diagnostics` returns reduced scalars on the state's device,
-through the `HaloOps` global reductions; the host-side `guard` brings them
-over in one copy and raises with the offending location, like the
-reference's "cfl > 2 in domain d01 at (i,j,k)" fatal message.
+through the `HaloOps` global reductions (`all_reduce` over a process
+mesh, so every rank sees the same values and raises together); the
+host-side `guard` brings them over in one copy and raises with the
+offending location (global indices), like the reference's "cfl > 2 in
+domain d01 at (i,j,k)" fatal message.
 """
 
 from __future__ import annotations
@@ -34,8 +36,26 @@ def stability_diagnostics(state: State, grid: Grid, dt: float, hx) -> Dict[str, 
         "cfl_y": hx.pmax(v_cfl),
         "cfl_z": hx.pmax(w_cfl),
         "w_max": hx.pmax(state["w"].abs().max()),
-        "theta_finite": torch.isfinite(state["t"]).all(),
+        "theta_finite": all_finite(state["t"], hx),
     }
+
+
+def all_finite(a: torch.Tensor, hx) -> torch.Tensor:
+    """Whether `a` is finite on every block of `hx`'s mesh (a 0-d bool on
+    every rank, so that all ranks raise together: a rank that raised alone
+    would leave the others waiting in their next exchange)."""
+    bad = (~torch.isfinite(a)).any().to(torch.float32)
+    return hx.pmax(bad) == 0
+
+
+def _global(idx, hx, shape):
+    """A block's (k, j, i) index as the global one (numpy integers, as the
+    reference's message prints them)."""
+    k, j, i = idx
+    m = hx.mesh
+    if m is None:
+        return k, j, i
+    return k, j + m.iy * shape[-2], i + m.ix * shape[-1]
 
 
 def guard(state: State, grid: Grid, dt: float, hx, step_idx: int,
@@ -49,12 +69,12 @@ def guard(state: State, grid: Grid, dt: float, hx, step_idx: int,
     if not d["theta_finite"]:
         t = state["t"].cpu().numpy()
         bad = np.argwhere(~np.isfinite(t))
-        loc = tuple(bad[0]) if len(bad) else "?"
+        loc = tuple(_global(bad[0], hx, t.shape)) if len(bad) else "(on another block)"
         raise FloatingPointError(
             f"NaN in theta at step {step_idx}, first at (k,j,i)={loc}")
     if d["w_max"] > w_limit:
         w = state["w"].cpu().numpy()
-        loc = tuple(np.unravel_index(np.argmax(np.abs(w)), w.shape))
+        loc = tuple(_global(np.unravel_index(np.argmax(np.abs(w)), w.shape), hx, w.shape))
         raise FloatingPointError(
             f"|w| = {d['w_max']:.1f} m/s exceeds {w_limit} at step "
             f"{step_idx}, (k,j,i)={loc} — CFL/physics blowup")

@@ -11,16 +11,17 @@ cumulus; RRTMG or the simple radiation; the whole chem driver for every
 package; and the run infrastructure (history, restart, auxhist, tslist,
 the NaN guard, the emission stream); and real data and nesting: terrain,
 map projections, specified lateral boundaries, the real.exe and WPS path,
-analysis nudging, the polar filter, nests and ndown.  What is outside
-these (several GPUs) raises `NotImplementedError` naming the slice that
-brings it, so that nothing runs silently with a piece missing.
+analysis nudging, the polar filter, nests and ndown; and the domain
+decomposition over a process mesh (`parallel`).  What is outside these
+(a nest on a process mesh) raises `NotImplementedError` naming the slice
+that brings it, so that nothing runs silently with a piece missing.
 """
 
 from __future__ import annotations
 
 from wrfchem_arc_interactions_tpu_torch.config import Config
 
-SLICE_MESH = "a later slice (ROADMAP Queue 1 item 10, multi-GPU decomposition)"
+SLICE_MESH = "a later slice (ROADMAP Queue 1 item 10b, sharded nests)"
 
 
 def unported(what: str, where: str) -> NotImplementedError:
@@ -34,6 +35,4 @@ def check_config(cfg: Config) -> None:
             f"aer_op_opt={cfg.chem.aer_op_opt}: the reference reads this option nowhere "
             "and always mixes by volume (option 1); the port refuses other values "
             "rather than ignore them")
-    if cfg.parallel.mesh_x > 1 or cfg.parallel.mesh_y > 1:
-        raise unported("a device mesh", SLICE_MESH)
 
