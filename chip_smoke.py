@@ -92,7 +92,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    slice-7 configuration at 16x8x20; the LES case with the TKE closure and
    WENO5; SPPT and SKEBS; MYNN over the slab surface; BMJ, KF and Grell with
    WSM6 at dx = 10 km; the simple radiation;
-15. slice-9 phase, this slice's main path: config 4's physics and
+15. slice-9 phase, slice 9's main path: config 4's physics and
    chemistry on a real-data domain (`_cfg9`): real_init of the synthetic
    analysis at 0, 3,600 and 7,200 s on a Lambert grid at 40N over a
    1,000 m ridge, 100x100x50 at dx 12 km and dt 60 s from noon UTC,
@@ -118,7 +118,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    the outer sides, each block through the seam grids and bitwise against
    the plain version on the whole domain; one block's seam grids timed
    beside the flat kernel at the same shape;
-19. slice-10 phase, this slice's main path: config 4 (`_cfg4`, 100x100x50)
+19. slice-10 phase, slice 10's main path: config 4 (`_cfg4`, 100x100x50)
    on a 2x2 mesh, four ranks spawned on the card over gloo (the kernels
    built in this process first), 2 warm-up steps and a 20-step window (two
    chem calls), gathered on rank 0 and held to one block's run of the same
@@ -132,12 +132,33 @@ Phases (each raises on failure, and the script then exits non-zero):
    wrapper's seam grids and r_hi's ring exchange) and one chem call's Mie
    and ROS2 calls (125,000 cells) within their limits; with two cards or
    more, also the dycore on a 1x2 mesh
-   over NCCL against one card, else a line that says why it did not run.
+   over NCCL against one card, else a line that says why it did not run;
+20. slice-11 phase, this slice's main path: config 4 nested (`_cfg4` at
+   100x100x50, a two-way 3:1 child of 90x90x50 at dt 2 s over parent cells
+   35-64 in x and y, across both seams) through `NestedSimulation(...,
+   mesh=...)` on a 2x2 mesh, four ranks spawned on the card over gloo, 2
+   warm-up parent steps and a 10-step window (30 child steps, one chem
+   call on each domain), both domains gathered on rank 0 and held to the
+   one-block nest's run of the same steps on the card, every field (each
+   difference printed; tests/test_parallel.py's full-step tolerances
+   fail it); per rank and domain the launches of each kernel per parent
+   step and per chem call (equal to one block's), the halo's exchanges and
+   bytes and the nest's all-gathers and their bytes per parent step, and
+   ms per parent step beside the one-block nest's; then on every rank, on
+   the child's 45x45 block, `on_path10`'s checks (one child step's
+   scalar-advection and multi-tracer calls bitwise, one child chem call's
+   Mie bins and ROS2 call at 101,250 cells);
+21. item 12: the reference's slow-marked tests/test_squall_line.py on the
+   card with its assertions (30 min of the 2D squall line at 60x4x24 with
+   its water budget within 5e-3, 600 s of the quarter_ss supercell);
+22. item 11: the banded-matmul fluxes (`ops/mxu_adv.py`, full float32
+   library products) against the stencil fluxes within 1e-6 relative.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``; the kernels' ``launches`` are slice 10's
-window, summed over its four ranks.  Without a CUDA device it exits with
-code 1 and prints no result.  It imports nothing of JAX.
+``{"ok": true, "device": {...}}``; the kernels' ``launches`` are slice 11's
+window, summed over its four ranks and both domains.  Without a CUDA
+device it exits with code 1 and prints no result.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -2529,6 +2550,299 @@ def nccl_rank(rank, device):
     return None if g is None else {k: v.numpy() for k, v in g.items()}
 
 
+MESH11 = (2, 2)                # slice 11's mesh, for parent and child
+WINDOW11 = 10                  # parent steps 2..11 (child 6..35): one chem call each
+# the child of slice 11: 90x90 at dt 2 s over parent cells 35..64 in x and
+# y, across both seams of the parent's 2x2 mesh (x = 50, y = 50); its own
+# blocks are 45x45, not the parent's 50x50
+SPEC11 = dict(i_start=35, j_start=35, nx_parent_cells=30, ny_parent_cells=30, ratio=3)
+
+
+def _nest11(cfg, dev, spec, mesh=None):
+    """Config 4 (`cfg`) nested as slice 11 runs it: the squall line with
+    bench.py's seed, a two-way 3:1 child at `spec`; on `mesh` when given."""
+    from wrfchem_arc_interactions_tpu_torch.models import ideal, soundings
+    from wrfchem_arc_interactions_tpu_torch.models.nest import NestedSimulation, NestSpec
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    return NestedSimulation(cfg, grid, _seed4(state), NestSpec(**spec),
+                            soundings.weisman_klemp_theta(), feedback=True, mesh=mesh,
+                            device=dev)
+
+
+def _run11(nest, steps):
+    """Warm up 2 parent steps, then a window of `steps` parent steps from
+    zeroed counts: the window's launches of each domain, the mesh's halo
+    exchanges and bytes and its all-gathers and their bytes, and host ms
+    per parent step.  The domains' launches are told apart by counting
+    around each `Simulation.advance` call that the nest makes."""
+    tally = {"parent": {}, "child": {}}
+    for which, counts in tally.items():
+        sim = getattr(nest, which)
+
+        def advance(n, *a, _inner=sim.advance, _counts_of=counts, **kw):
+            c0 = _counts()
+            _inner(n, *a, **kw)
+            for k, v in _counts().items():
+                _counts_of[k] = _counts_of.get(k, 0) + v - c0[k]
+        sim.advance = advance
+    nest.advance(2)
+    nest.parent.sync()
+    mesh = nest.mesh
+    if mesh is not None:
+        mesh.barrier()
+        m0 = (mesh.exchanges, mesh.bytes_sent, mesh.all_gathers, mesh.all_gather_bytes)
+    for counts in tally.values():
+        counts.clear()
+    _reset_counts()
+    t0 = time.perf_counter()
+    nest.advance(steps)
+    nest.parent.sync()
+    wall = time.perf_counter() - t0
+    for which in tally:
+        del getattr(nest, which).advance
+    traffic = (0, 0, 0, 0) if mesh is None else tuple(
+        b - a for a, b in zip(m0, (mesh.exchanges, mesh.bytes_sent, mesh.all_gathers,
+                                   mesh.all_gather_bytes)))
+    chem = {which: sum(1 for n in range(lo, hi) if n % getattr(nest, which).chem_every == 0)
+            for which, (lo, hi) in (("parent", (2, 2 + steps)),
+                                    ("child", (2 * nest.spec.ratio,
+                                               (2 + steps) * nest.spec.ratio)))}
+    return tally, chem, traffic, wall * 1e3 / steps
+
+
+def slice11_rank(rank, device, steps, shape, spec):
+    """One rank of slice 11's phase: config 4 nested, the parent's 50x50
+    and the child's 45x45 blocks of the 2x2 mesh (gloo; the ranks share
+    the card); then `on_path10` on the child's block."""
+    from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device(device)
+    mesh = make_mesh(*MESH11, device=dev)
+    nest = _nest11(_cfg4(*shape), dev, spec, mesh)
+    torch.cuda.empty_cache()
+    tally, chem, traffic, ms_step = _run11(nest, steps)
+    parent, child = nest.parent.gather_state(), nest.child.gather_state()
+    on_path = on_path10(nest.child, f"slice 11 child rank {rank}")
+    return {"rank": rank, "blocks": {w: (getattr(nest, w).grid.ny, getattr(nest, w).grid.nx)
+                                     for w in ("parent", "child")},
+            "launches": tally, "chem_calls": chem, "exchanges": traffic[0],
+            "bytes": traffic[1], "all_gathers": traffic[2], "all_gather_bytes": traffic[3],
+            "ms_step": ms_step, "on_path": on_path,
+            "state": None if parent is None else {
+                "parent": {k: v.numpy() for k, v in parent.items()},
+                "child": {k: v.numpy() for k, v in child.items()}}}
+
+
+def slice11_phase(dev, card, steps=WINDOW11, shape=(100, 100, 50), spec=SPEC11):
+    """Slice 11's main path: config 4 nested (`_cfg4`, a two-way 3:1 child
+    of 90x90x50 at dt 2 s) on a 2x2 mesh of four ranks sharing the card over
+    gloo, 2 warm-up parent steps and a 10-step window (30 child steps, one
+    chem call on each domain), against the one-block nest on the card over
+    the same steps; per rank the launches of each kernel per parent step
+    and per chem call of each domain, the halo's exchanges and bytes and
+    the nest's all-gathers and bytes per parent step, ms per parent step;
+    then on every rank `on_path10` on the child's block.  Returns the
+    window's launches summed over the ranks and both domains, and the
+    numbers."""
+    from wrfchem_arc_interactions_tpu_torch.parallel import launch
+    nest = _nest11(_cfg4(*shape), dev, spec)
+    tally_one, chem_one, _, one_ms = _run11(nest, steps)
+    one = {w: {k: v.cpu().numpy() for k, v in getattr(nest, w).state.items()}
+           for w in ("parent", "child")}
+    del nest
+    torch.cuda.empty_cache()
+    per_step = ("advect_scalar_5_3", "advect_tracers")
+    per_chem = ("mie_cheb_eval", "ros2_integrate")
+    ratio = spec["ratio"]
+    for which, n_steps in (("parent", steps), ("child", ratio * steps)):
+        want = {"advect_scalar_5_3": 3 * n_steps,
+                "advect_tracers": _tracer_grids_per_step() * n_steps,
+                "mie_cheb_eval": 4 * chem_one[which], "ros2_integrate": chem_one[which]}
+        if tally_one[which] != want or chem_one[which] < 1:
+            raise RuntimeError(f"slice 11 one block, {which}: launches {tally_one[which]} "
+                               f"in the window, expected {want}")
+    t0 = time.perf_counter()
+    ranks = launch.spawn(slice11_rank, MESH11[0] * MESH11[1], "gloo",
+                         [str(dev)] * (MESH11[0] * MESH11[1]), args=(steps, shape, spec))
+    spawn_s = time.perf_counter() - t0
+    diffs, bitwise = {}, True
+    for which in ("parent", "child"):
+        got = ranks[0]["state"][which]
+        bad = [k for k, v in got.items() if not np.isfinite(v).all()]
+        if bad:
+            raise RuntimeError(f"slice 11 {which}: non-finite {bad}")
+        if set(got) != set(one[which]):
+            raise RuntimeError(f"slice 11 {which}: fields differ from one block's")
+        diffs[which] = {k: float(np.abs(one[which][k].astype(np.float64)
+                                        - got[k].astype(np.float64)).max())
+                        for k in one[which]}
+        nonzero = {k: d for k, d in diffs[which].items() if d != 0.0}
+        bitwise = bitwise and not nonzero
+        print(f"slice 11: config 4 nested on a {MESH11[0]}x{MESH11[1]} mesh, {which} "
+              f"({len(got)} fields) after {steps + 2} parent steps, gathered on rank 0, "
+              f"against the one-block nest on the card: bitwise in every field "
+              f"{not nonzero}" + ("" if not nonzero else "; max|d| per field: "
+                                  + ", ".join(f"{k} {d:.3g}" for k, d in nonzero.items())))
+        over = {k: diffs[which][k] for k, t in TOL10.items()
+                if k in diffs[which] and not diffs[which][k] < t}
+        if over:
+            raise RuntimeError(f"slice 11 {which}: 2x2 vs one block beyond tolerance: {over}")
+    for r in ranks:
+        o = r["on_path"]
+        for name, n in o["bitwise_calls"].items():
+            ON_PATH[name][f"slice 11 child rank {r['rank']}"] = n
+        print(f"slice 11 child rank {r['rank']}, kernels against their plain versions on "
+              f"the rank's own inputs ({r['blocks']['child'][0]}x{r['blocks']['child'][1]} "
+              f"block): one child step's advect_scalar_5_3 "
+              f"{o['bitwise_calls']['advect_scalar_5_3']} calls and advect_tracers "
+              f"{o['bitwise_calls']['advect_tracers']} calls ({o['seam_stage_calls']} "
+              f"through the seam grids), bitwise; one chem call's mie_cheb_eval "
+              f"{o['mie_bins']} bins, max|d| {o['mie_max_abs_err']:.3g}, and ros2_integrate "
+              f"at {o['ros2_cells']} cells, max|a-b|/(|b|+1e3) {o['ros2_max_rel_err']:.3g}, "
+              f"bitwise {o['ros2_bitwise']}")
+        if not o["ros2_bitwise"]:
+            raise RuntimeError(f"slice 11 child rank {r['rank']}: ros2_integrate not "
+                               "bitwise on the child's inputs")
+    for r in ranks:
+        for which, n_steps in (("parent", steps), ("child", ratio * steps)):
+            c = r["launches"][which]
+            for k in per_step + per_chem:
+                if c[k] != tally_one[which][k] or (k in per_chem and c[k] < 1):
+                    raise RuntimeError(f"slice 11 rank {r['rank']} {which}: {k} {c[k]} "
+                                       f"launches, one block {tally_one[which][k]}")
+            by, bx = r["blocks"][which]
+            print(f"slice 11 rank {r['rank']} {which} {by}x{bx} block: per parent step "
+                  + ", ".join(f"{k} {c[k] / steps:g}" for k in per_step)
+                  + "; per chem call "
+                  + ", ".join(f"{k} {c[k] / r['chem_calls'][which]:g}" for k in per_chem)
+                  + f" ({r['chem_calls'][which]} chem call(s) in {n_steps} {which} steps)")
+        print(f"slice 11 rank {r['rank']}: per parent step {r['exchanges'] / steps:g} halo "
+              f"exchanges, {r['bytes'] / steps / 2**20:.3f} MiB sent; the nest's "
+              f"{r['all_gathers'] / steps:g} all-gathers, "
+              f"{r['all_gather_bytes'] / steps / 2**20:.3f} MiB assembled; "
+              f"{r['ms_step']:.1f} ms per parent step (4 ranks share one card, strips and "
+              f"gathers through the host: not a scaling number; the one-block nest "
+              f"{one_ms:.1f} ms per parent step) [{card}]")
+    print(f"slice 11: spawn, cases, {steps + 2} parent steps, gathers and on-path checks "
+          f"of 4 ranks took {spawn_s:.1f} s")
+    names = per_step + per_chem
+    launches = {k: sum(r["launches"][w][k] for r in ranks for w in ("parent", "child"))
+                for k in names}
+    numbers = {"mesh": list(MESH11), "spec": spec, "window_parent_steps": steps,
+               "bitwise_vs_one_block": bitwise, "max_abs_diff": diffs,
+               "ranks": [{k: r[k] for k in ("rank", "blocks", "launches", "chem_calls",
+                                            "exchanges", "bytes", "all_gathers",
+                                            "all_gather_bytes", "ms_step", "on_path")}
+                         for r in ranks],
+               "one_block_ms_per_parent_step": one_ms, "launches_one_block": tally_one}
+    return launches, numbers
+
+
+SQUALL_MOIST = ("qv", "qc", "qr")
+
+
+def item12_card_checks(dev, card):
+    """The reference's slow-marked tests/test_squall_line.py on the card,
+    with its assertions: 30 min of the 2D squall line at 60x4x24 (cloud,
+    rain, bounded updrafts, positive moisture, the water budget closed to
+    5e-3, theta_e bounded) and 600 s of the quarter_ss supercell at
+    32x32x20 (finite, updraft above 1 m/s); both with the NaN check."""
+    from wrfchem_arc_interactions_tpu_torch.config import (
+        Config, DomainConfig, DynamicsConfig, TimeControl,
+    )
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    cfg = Config(domain=DomainConfig(nx=60, ny=4, nz=24, dx=1000.0, dy=1000.0,
+                                     ztop=17000.0, p_top=8000.0),
+                 time_control=TimeControl(dt=6.0), dynamics=DynamicsConfig(kvdif=30.0))
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    sim = Simulation(cfg, grid, state, check_nans=True, device=dev)
+    mub = grid.mub.double().cpu().numpy()
+    dnw = grid.dnw.double().cpu().numpy().reshape(-1, 1, 1)
+
+    def total_water():
+        s = {k: sim.state[k].double().cpu().numpy() for k in SQUALL_MOIST + ("mu", "rainnc")}
+        col = -np.sum(dnw * sum(s[n] for n in SQUALL_MOIST), axis=0) * (mub + s["mu"]) / 9.81
+        return float(col.sum() + s["rainnc"].sum())
+
+    w0 = total_water()
+    t0 = time.perf_counter()
+    sim.run_seconds(1800.0)
+    wall = time.perf_counter() - t0
+    s = {k: v.cpu().numpy() for k, v in sim.state.items()}
+    w_max, qc_max, rain = float(s["w"].max()), float(s["qc"].max()), float(s["rainnc"].max())
+    drift = abs(total_water() - w0) / w0
+    pb = grid.pb.cpu().numpy()[:17]
+    th = s["t"][:17] + 300.0
+    t_abs = th * (pb / 1e5) ** 0.2857
+    th_e = th * np.exp(2.5e6 * s["qv"][:17] / (1004.0 * np.maximum(t_abs, 150.0)))
+    fails = [msg for ok, msg in (
+        (np.isfinite(s["w"]).all(), "non-finite w"),
+        (1.0 < w_max < 60.0, f"w_max {w_max}"),
+        (qc_max > 1e-4, f"qc_max {qc_max}"),
+        (rain > 1.0, f"no rain after 30 min ({rain})"),
+        (all(s[q].min() >= 0.0 for q in SQUALL_MOIST), "negative moisture"),
+        (drift < 5e-3, f"water budget drift {drift:.3g}"),
+        (th_e.max() < 360.0, f"theta_e pumped to {th_e.max():.1f}")) if not ok]
+    if fails:
+        raise RuntimeError(f"squall line on the card: {fails}")
+    print(f"item 12, tests/test_squall_line.py on the card: the 2D squall line at 60x4x24, "
+          f"1800 s in {sim.step_idx} steps ({wall:.1f} s): max w {w_max:.3f} m/s, max qc "
+          f"{qc_max:.3e}, max rainnc {rain:.3f}, water budget drift {drift:.3g} (< 5e-3), "
+          f"max theta_e {th_e.max():.1f} K [{card}]")
+    cfg = Config(domain=DomainConfig(nx=32, ny=32, nz=20, dx=2000.0, dy=2000.0,
+                                     ztop=16000.0, p_top=10000.0),
+                 time_control=TimeControl(dt=10.0), dynamics=DynamicsConfig(kvdif=30.0))
+    grid, state = ideal.make_case(cfg, "quarter_ss", device=dev, bubble_amp=3.0)
+    sim = Simulation(cfg, grid, state, check_nans=True, device=dev)
+    sim.run_seconds(600.0)
+    w = sim.state["w"]
+    ss_w_max = float(w.max())
+    if not (bool(torch.isfinite(w).all()) and ss_w_max > 1.0):
+        raise RuntimeError(f"quarter_ss on the card: max w {ss_w_max}")
+    print(f"item 12, the quarter_ss supercell at 32x32x20 on the card: 600 s in "
+          f"{sim.step_idx} steps, finite, max w {ss_w_max:.3f} m/s (> 1) [{card}]")
+    return {"squall_drift": drift, "squall_w_max": w_max, "quarter_ss_w_max": ss_w_max}
+
+
+def mxu_card_check(dev, card, nt=4, shape=(50, 100, 100)):
+    """Item 11 on the card: `ops/mxu_adv.py::scalar_fluxes_mxu` (library
+    products, full float32) against the stencil fluxes on the same seeded
+    padded inputs, orders 5/3, 3/3 and upwind, a batch of `nt` tracers,
+    within 1e-6 of each flux's magnitude; and the products' precision
+    setting."""
+    from wrfchem_arc_interactions_tpu_torch.dycore import advection
+    from wrfchem_arc_interactions_tpu_torch.ops import mxu_adv
+    nz, ny, nx = shape
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy((rng.normal(size=(nt, nz, ny + 6, nx + 6)) + 3.0)
+                         .astype(np.float32)).to(dev)
+    ru, rv = (torch.from_numpy(rng.normal(size=(nz, ny + 6, nx + 6)).astype(np.float32))
+              .to(dev) for _ in "uv")
+    ww = rng.normal(size=(nz + 1, ny, nx)).astype(np.float32)
+    ww[0] = ww[-1] = 0.0
+    ww = torch.from_numpy(ww).to(dev)
+    precision = torch.get_float32_matmul_precision()
+    worst = {}
+    for h, v in ((5, 3), (3, 3), (1, 1)):
+        mxu = mxu_adv.scalar_fluxes_mxu(q, ru, rv, ww, h, v)
+        ref = advection.scalar_fluxes(q, ru, rv, ww, h, v)
+        rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(mxu, ref))
+        worst[f"{h}/{v}"] = rel
+        if not rel <= 1e-6:
+            raise RuntimeError(f"scalar_fluxes_mxu ({h}, {v}) on the card: {rel:.3g} of the "
+                               "fluxes' magnitude from the stencil fluxes (limit 1e-6)")
+    ms = _wall_ms(lambda: mxu_adv.scalar_fluxes_mxu(q, ru, rv, ww, 5, 3))
+    ms_stencil = _wall_ms(lambda: advection.scalar_fluxes(q, ru, rv, ww, 5, 3))
+    print(f"item 11, scalar_fluxes_mxu on the card at ({nt}, {nz}, {ny}, {nx}) against the "
+          f"stencil fluxes: max relative difference "
+          + ", ".join(f"{k} {e:.3g}" for k, e in worst.items())
+          + f" (limit 1e-6); float32 matmul precision '{precision}' outside, 'highest' "
+          f"inside; synchronised {ms:.3f} ms per call at 5/3, the stencil {ms_stencil:.3f} "
+          f"ms [{card}]")
+    return {"max_rel": worst, "matmul_precision": precision, "ms": ms,
+            "stencil_ms": ms_stencil}
+
+
 def _profile(fn):
     """(device ms, kernel count, rows by kernel) of one profiled call."""
     from torch.autograd import DeviceType
@@ -2752,6 +3066,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches10, numbers10 = slice10_phase(dev, card)
     numbers10["nccl_1x2"] = nccl_phase(dev)
+    torch.cuda.empty_cache()
+    launches11, numbers11 = slice11_phase(dev, card)
+    torch.cuda.empty_cache()
+    numbers_items = {"item12": item12_card_checks(dev, card), "item11": mxu_card_check(dev, card)}
     entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
     entries["advect_tracers"]["max_abs_err"] = max(
         entries["advect_tracers"]["max_abs_err"], *(m["max_abs_err"] for m in modes_wide.values()))
@@ -2763,18 +3081,24 @@ def main(argv=None) -> int:
           for b in entries["mie_cheb_eval"][path].values()))
     for name, key in (("mie_cheb_eval", "mie_max_abs_err"),
                       ("ros2_integrate", "ros2_max_abs_err")):
-        entries[name]["slice10_on_path_max_abs_err"] = max(
-            r["on_path"][key] for r in numbers10["ranks"])
-        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
-                                           entries[name]["slice10_on_path_max_abs_err"])
+        for label, numbers in (("slice10", numbers10), ("slice11", numbers11)):
+            entries[name][f"{label}_on_path_max_abs_err"] = max(
+                r["on_path"][key] for r in numbers["ranks"])
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                               entries[name][f"{label}_on_path_max_abs_err"])
     for name, by_path in ON_PATH.items():
         entries[name]["bitwise_on_path_calls"] = by_path
-    # "launches" is the count of this slice's main path, the slice-10 window
-    # (config 4 on a 2x2 mesh: the four ranks' launches summed), which runs
-    # all four kernels on every rank; the earlier paths' counts stand beside it
+    # "launches" is the count of this slice's main path, the slice-11 window
+    # (config 4 nested on a 2x2 mesh: the four ranks' launches of both
+    # domains summed), which runs all four kernels on every rank; the earlier
+    # paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches10[name]
-        entry["launches_by_path"] = {"slice10_window_4_ranks": launches10[name],
+        entry["launches"] = launches11[name]
+        entry["launches_by_path"] = {"slice11_window_4_ranks": launches11[name],
+                                     "slice11_window_by_rank_and_domain": [
+                                         {w: r["launches"][w][name] for w in r["launches"]}
+                                         for r in numbers11["ranks"]],
+                                     "slice10_window_4_ranks": launches10[name],
                                      "slice10_window_by_rank": [
                                          r["launches"][name] for r in numbers10["ranks"]],
                                      "slice9_window": launches9[name],
@@ -2785,11 +3109,14 @@ def main(argv=None) -> int:
                                      "config3_window": launches3[name],
                                      "slice1_10_steps": launches1[name],
                                      "config3_1000x100_3_steps": launches_wide[name]}
-        if launches9[name] < 1 or min(entry["launches_by_path"]["slice10_window_by_rank"]) < 1:
-            raise RuntimeError(f"{name} was not launched on slice 9's path or on every "
-                               "rank of slice 10's")
+        if (launches9[name] < 1 or min(entry["launches_by_path"]["slice10_window_by_rank"]) < 1
+                or min(min(d.values()) for d in
+                       entry["launches_by_path"]["slice11_window_by_rank_and_domain"]) < 1):
+            raise RuntimeError(f"{name} was not launched on slice 9's path, on every rank "
+                               "of slice 10's or on both domains of every rank of slice 11's")
     print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8,
-                      "slice9": numbers9, "slice10": numbers10}))
+                      "slice9": numbers9, "slice10": numbers10, "slice11": numbers11,
+                      **numbers_items}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

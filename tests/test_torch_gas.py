@@ -21,7 +21,11 @@ seeded inputs (both on the CPU).
 - a mechanism compiled from ``mechanisms/cbmz.eqn`` takes the same kernel;
   a small user mechanism gets its own;
 - on a CUDA card, the kernel against its plain version (skipped without
-  one).
+  one);
+- the reference's mechanism-compiler checks
+  (tests/test_mechanism_compiler.py) on the port: the exported CBM-Z round
+  trip equals the built-in tables exactly, and malformed mechanisms are
+  compile errors.
 """
 
 import os
@@ -359,3 +363,37 @@ def test_cuda_kernel_matches_plain_version():
     out = tgas.integrate(conc, k, 60.0)
     assert ros2_kernel.ros2_integrate.launches == before + 4
     assert _err(out.cpu().numpy(), tgas.integrate(conc.cpu(), k.cpu(), 60.0).numpy()) < BOUND
+
+
+# -- the reference's mechanism-compiler checks (tests/test_mechanism_compiler.py)
+# on the port
+
+
+def test_cbmz_round_trip_exact(tmp_path):
+    """Export to .eqn, compile natively: the tables equal the built-in
+    ones."""
+    if not _have_mechc():
+        pytest.skip("no C++ toolchain for mechc")
+    p = tmp_path / "cbmz.eqn"
+    tmech.export_eqn(str(p))
+    species, order, net, rkind, rparams = tmech.tables_from(tmech.compile_eqn(str(p)))
+    assert species == tgas.GAS_SPECIES
+    np.testing.assert_array_equal(order, tgas._ORDER)
+    np.testing.assert_array_equal(net, tgas._NET)
+    assert rkind == tgas._RKIND
+    assert rparams == [tuple(p) for p in tgas._RPARAMS]
+
+
+def test_compile_time_validation(tmp_path):
+    """Undeclared species and malformed rates are compile errors (the
+    validation role KPP plays)."""
+    if not _have_mechc():
+        pytest.skip("no C++ toolchain for mechc")
+    for name, text, match in (
+            ("bad1", "#SPECIES o3 no\nno2 = no + o3 : PHOT(no2) ;\n", "undeclared"),
+            ("bad2", "#SPECIES o3 no\nno + o3 = : FOO(1.0) ;\n", "unknown rate"),
+            ("bad3", "#SPECIES o3 no\nno + o3 = o3 : ARR(1.0, 0.0, 0.0)\n", "without ';'")):
+        path = tmp_path / f"{name}.eqn"
+        path.write_text(text)
+        with pytest.raises(ValueError, match=match):
+            tmech.compile_eqn(str(path))

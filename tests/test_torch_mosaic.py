@@ -4,7 +4,10 @@ electrolyte ladder, the mutual deliquescence RH, the phase state, water
 uptake, the uptake coefficients, `thermo.partition` (with the ASTEM
 sub-steps), `nucleation.nucleate`, `coag.coagulate` and `movesect.remap`.
 Every field is held to 1e-4 of its magnitude; the phase flags (0 or 1)
-must be equal.
+must be equal.  Then the reference's MESA electrolyte tests
+(tests/test_mesa_electrolytes.py) on the port, with their inputs and
+assertions: the ladder's ion conservation and precedence, the mutual DRH,
+and the phase transitions.
 """
 
 import numpy as np
@@ -173,3 +176,98 @@ def test_aerosol_dynamics_chain():
     tc = tcoag.coagulate(tc, t["rho"], NBIN, 60.0)
     tc = tmove.remap(tc, NBIN)
     print("stage 6 worst:", _compare(jc, tc))
+
+
+# -- the reference's MESA electrolyte tests (tests/test_mesa_electrolytes.py) on
+# the port: the same inputs and assertions
+
+# electrolyte -> ion stoichiometry, for the conservation check
+STOICH = {
+    "caso4": {"ca": 1, "so4": 1}, "caco3": {"ca": 1, "co3": 1},
+    "na2so4": {"na": 2, "so4": 1}, "nh42so4": {"nh4": 2, "so4": 1},
+    "nh4hso4": {"nh4": 1, "so4": 1}, "h2so4": {"so4": 1},
+    "cano32": {"ca": 1, "no3": 2}, "nano3": {"na": 1, "no3": 1},
+    "nacl": {"na": 1, "cl": 1}, "nh4no3": {"nh4": 1, "no3": 1},
+    "nh4cl": {"nh4": 1, "cl": 1},
+    "_residual_na": {"na": 1}, "_residual_co3": {"co3": 1},
+    "_residual_nh4": {"nh4": 1}, "_residual_no3": {"no3": 1},
+    "_residual_cl": {"cl": 1}, "_residual_ca": {"ca": 1},
+}
+IONS = ("so4", "no3", "nh4", "na", "cl", "ca", "co3")
+
+
+def test_ladder_conserves_every_ion():
+    rng = np.random.default_rng(3)
+    ions = {k: _t(rng.uniform(0.0, 2.0, 64)) for k in IONS}
+    e = tthermo.electrolyte_ladder(ions)
+    for ion in ions:
+        back = sum(st[ion] * e[name].numpy() for name, st in STOICH.items() if ion in st)
+        np.testing.assert_allclose(back, ions[ion].numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=ion)
+    for name, v in e.items():
+        assert (v.numpy() >= -1e-9).all(), name
+
+
+def _ladder(**amounts):
+    return tthermo.electrolyte_ladder({k: torch.full((1,), float(amounts.get(k, 0.0)))
+                                       for k in IONS})
+
+
+def test_ladder_precedence():
+    """Ca binds sulfate before Na; Na binds sulfate before nitrate; the
+    sulfate-rich regime makes bisulfate, then free acid."""
+    # sea salt and sulfate: Na2SO4 forms first, the leftover Na takes Cl
+    e = _ladder(so4=1, na=4, cl=2)
+    assert float(e["na2so4"][0]) == 1.0
+    assert float(e["nacl"][0]) == 2.0
+    # sulfate-rich, ammonium-poor: bisulfate and free sulfuric acid
+    e = _ladder(so4=3, nh4=1)
+    assert float(e["nh42so4"][0]) == 0.5
+    assert float(e["nh4hso4"][0]) == 0.0
+    assert float(e["h2so4"][0]) == 2.5
+    # dust: CaSO4 before CaCO3 before Ca(NO3)2
+    e = _ladder(so4=0.5, no3=2, ca=2, co3=1)
+    assert float(e["caso4"][0]) == 0.5
+    assert float(e["caco3"][0]) == 1.0
+    assert float(e["cano32"][0]) == 0.5
+
+
+def _bin_chem(comp, shp=(8,)):
+    return {f"chem_{s}_a01": torch.full(shp, float(comp.get(s, 0.0)))
+            for s in list(tbins.AER_SPECIES) + ["water"]}
+
+
+def test_mutual_drh_mixture_below_pure():
+    """The eutonic behaviour: an AS+AN mixed bin deliquesces below both
+    pure salts' DRH; pure bins keep the laboratory values."""
+    d_as = float(tthermo.mutual_drh(_bin_chem({"so4": 96.0, "nh4": 36.0}), 1)[0])
+    d_an = float(tthermo.mutual_drh(_bin_chem({"no3": 62.0, "nh4": 18.0}), 1)[0])
+    d_mix = float(tthermo.mutual_drh(_bin_chem({"so4": 48.0, "no3": 31.0, "nh4": 27.0}),
+                                     1)[0])
+    assert 0.76 < d_as < 0.84, d_as
+    assert 0.58 < d_an < 0.66, d_an
+    assert d_mix < min(d_as, d_an), (d_mix, d_as, d_an)
+    assert d_mix > 0.4
+
+
+def test_insoluble_bin_never_deliquesces():
+    dust = _bin_chem({"bc": 5.0})
+    assert float(tthermo.mutual_drh(dust, 1)[0]) > 1.0
+    flags = tthermo.phase_state(dust, torch.full((8,), 0.99), 1)
+    assert float(flags[0].max()) == 0.0
+
+
+def test_seasalt_sulfate_bin_phase_transition():
+    """A sea-salt bin with sulfate: solid at RH 0.3, liquid at RH 0.9, and
+    between them the hysteresis branch its history picks."""
+    chem = _bin_chem({"na": 23.0, "cl": 35.45, "so4": 9.6})
+    lo = tthermo.phase_state(chem, torch.full((8,), 0.30), 1)[0]
+    hi = tthermo.phase_state(chem, torch.full((8,), 0.90), 1)[0]
+    assert float(lo.max()) == 0.0
+    assert float(hi.min()) == 1.0
+    # mid-range: a dry history stays solid, a wet one stays liquid
+    mid_dry = tthermo.phase_state(chem, torch.full((8,), 0.55), 1)[0]
+    chem_wet = dict(chem, chem_water_a01=torch.full((8,), 10.0))
+    mid_wet = tthermo.phase_state(chem_wet, torch.full((8,), 0.55), 1)[0]
+    assert float(mid_dry.max()) == 0.0
+    assert float(mid_wet.min()) == 1.0

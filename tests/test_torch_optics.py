@@ -7,6 +7,10 @@ artifacts/PALLAS_MIE_AB.json), `aerosol_optics` (tau to 1e-4 of its
 magnitude, ssa and asy to 1e-4 absolute), dry deposition on both of its
 paths (1e-6 relative) and the chem driver on config 3's switches.  On the
 CUDA card, the Mie kernel against its plain version (skipped without one).
+Then the reference's aerosol-radiation-cloud anchors
+(tests/test_arc_anchors.py) on the port's radiation, with their inputs and
+envelopes: surface SW dimming per unit AOD, the LW greenhouse sign of an
+absorbing layer, and the Twomey albedo susceptibility.
 """
 
 import numpy as np
@@ -38,7 +42,10 @@ from wrfchem_arc_interactions_tpu_torch.chem import optics as topt  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.chem.mosaic import bins as tbins  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.physics.radiation import bands as tbands  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.physics.radiation import rrtmg_lw as tlw  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.physics.radiation import rrtmg_sw as tsw  # noqa: E402
 
+from test_torch_radiation import standard_column  # noqa: E402
 from test_torch_slice import _cfg3, jax_grid_to_port, seed_chem  # noqa: E402
 
 SHP = (4, 3, 5)
@@ -244,3 +251,83 @@ def test_mie_kernel_matches_plain_on_gpu():
     assert mie_kernel.cheb_eval.launches == n0 + 1
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 3.2e-4
+
+
+# -- the reference's aerosol-radiation-cloud anchors (tests/test_arc_anchors.py)
+# on the port: the same columns and the same physical envelopes
+
+
+def _aer_sw(nz, ncol, aod, ssa=0.92, asy=0.65, k_lo=2, k_hi=8):
+    """Spectrally gray aerosol confined to layers k_lo..k_hi."""
+    tau = np.zeros((tbands.NBND_SW, nz, ncol), np.float32)
+    tau[:, k_lo:k_hi, :] = aod / (k_hi - k_lo)
+    tau = _t(tau)
+    return tau, torch.full_like(tau, ssa), torch.full_like(tau, asy)
+
+
+def test_aerosol_direct_surface_dimming_per_aod():
+    p, t, dp, qv, lwp, _ = standard_column(qv0=0.008)
+    nz, ncol = p.shape
+    mu0 = torch.full((ncol,), 1.0)
+    alb = torch.full((ncol,), 0.08)      # a dark (ocean-like) surface
+    clean = float(tsw.sw_fluxes(p, t, dp, qv, lwp, mu0, alb)["flux_dn"][0, 0])
+    dims = []
+    for aod in (0.25, 0.5, 1.0):
+        ta, sa, ga = _aer_sw(nz, ncol, aod)
+        dirty = float(tsw.sw_fluxes(p, t, dp, qv, lwp, mu0, alb, tau_aer_sw=ta,
+                                    ssa_aer_sw=sa, asy_aer_sw=ga)["flux_dn"][0, 0])
+        dims.append(clean - dirty)
+    # the sign, monotone in AOD
+    assert 0.0 < dims[0] < dims[1] < dims[2], dims
+    # tens of W/m2 at AOD 0.5 (forcing efficiency ~40-150 W/m2 per unit AOD
+    # for ssa ~0.9 over a dark surface)
+    assert 20.0 < dims[1] < 120.0, dims[1]
+
+
+def test_aerosol_lw_absorption_greenhouse_sign():
+    """A dust-like LW-absorbing layer in a dry column raises the surface's
+    downwelling LW and lowers OLR; over a humid column it does far less at
+    the surface."""
+    p, t, dp, qv, lwp, tsfc = standard_column(qv0=0.002)
+    nz, ncol = p.shape
+    base = tlw.lw_fluxes(p, t, dp, qv, lwp, tsfc)
+    tau = np.zeros((tbands.NBND_LW, nz, ncol), np.float32)
+    tau[:, 2:8, :] = 0.5 / 6.0           # a dust-like absorbing layer
+    tau = _t(tau)
+    pert = tlw.lw_fluxes(p, t, dp, qv, lwp, tsfc, tau_aer_lw=tau)
+    dglw = float(pert["glw"][0] - base["glw"][0])
+    dolr = float(pert["olr"][0] - base["olr"][0])
+    assert dglw > 1.0, dglw              # more downwelling at the surface
+    assert dolr < -0.2, dolr             # less escaping to space
+    humid = standard_column(qv0=0.008)
+    dglw_humid = float(tlw.lw_fluxes(*humid, tau_aer_lw=tau)["glw"][0]
+                       - tlw.lw_fluxes(*humid)["glw"][0])
+    assert dglw_humid < 0.5 * dglw, (dglw_humid, dglw)
+
+
+def test_twomey_albedo_susceptibility():
+    """Fixed LWP, droplet number 30 -> 300 /cc: the cloud brightens, with
+    dA/dln(N) inside the published 0.01-0.12 envelope."""
+    p, t, dp, qv, lwp, _ = standard_column(qv0=0.008, lwp_cloud=0.08)
+    nz, ncol = p.shape
+    mu0 = torch.full((ncol,), 0.8)
+    alb = torch.full((ncol,), 0.08)
+    k_cld = nz // 3
+    qc = 4.0e-4                          # kg/kg in the cloud layer
+
+    def run(nc_per_cc):
+        # effective radius from (qc, Nc) as the radiation driver forms it
+        nc = nc_per_cc * 1.0e6 / 1.2     # /cc -> /kg at rho ~1.2
+        rvol = (3.0 * qc / (4.0 * np.pi * 1000.0 * nc)) ** (1.0 / 3.0)
+        re = np.full((nz, ncol), 10.0e-6, np.float32)
+        re[k_cld] = np.clip(1.1 * rvol, 2.5e-6, 50.0e-6)
+        out = tsw.sw_fluxes(p, t, dp, qv, lwp, mu0, alb, re_liq=_t(re))
+        return (float(out["flux_up"][-1, 0] / out["flux_dn"][-1, 0]),
+                float(out["flux_dn"][0, 0]))
+
+    a_lo, sfc_lo = run(30.0)
+    a_hi, sfc_hi = run(300.0)
+    assert a_hi > a_lo, (a_lo, a_hi)     # a brighter cloud at higher N
+    assert sfc_hi < sfc_lo               # more dimming below it
+    dA_dlnN = (a_hi - a_lo) / np.log(10.0)
+    assert 0.01 < dA_dlnN < 0.12, dA_dlnN

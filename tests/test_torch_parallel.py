@@ -55,7 +55,8 @@ from wrfchem_arc_interactions_tpu_torch.dycore import solve as tsolve  # noqa: E
 from wrfchem_arc_interactions_tpu_torch.grid.grid import grid_from_numpy  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.io import history as hio  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation  # noqa: E402
-from wrfchem_arc_interactions_tpu_torch.models.nest import NestedSimulation  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.models import soundings  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.models.nest import NestedSimulation, NestSpec  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel import launch  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.sharded import halo_ops_for  # noqa: E402
@@ -390,12 +391,22 @@ def test_check_nans_raises_on_every_rank(sims):
 
 
 def test_nest_on_a_mesh_raises():
-    """Sharded nests come with ROADMAP Queue 1 item 10b."""
-    cfg = R.bubble_cfg()
+    """A nest on a mesh runs (it raised before nests on a mesh were
+    ported; the name is kept): on the 1 x 1 mesh, which needs no process
+    group, a two-way nest equals the nest without a mesh bit for bit.  The
+    2x2 cases are in `test_torch_nest_mesh.py`."""
+    cfg = R.nest_cfg()
     grid, state = R.bubble_case(cfg)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        NestedSimulation(cfg, grid, state, None, None, mesh=make_mesh(1, 1, device="cpu"),
-                         device="cpu")
+    runs = [NestedSimulation(cfg, grid, state, NestSpec(**R.FEEDBACK_SPEC),
+                             soundings.constant_n2_theta(), feedback=True, mesh=mesh,
+                             device="cpu")
+            for mesh in (None, make_mesh(1, 1, device="cpu"))]
+    for nest in runs:
+        nest.advance(2)
+    for which in ("parent", "child"):
+        a, b = (getattr(n, which).state for n in runs)
+        assert set(a) == set(b)
+        assert all(torch.equal(a[k], b[k]) for k in a), which
 
 
 # -- the process setup ---------------------------------------------------------------

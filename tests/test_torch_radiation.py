@@ -6,7 +6,10 @@ SW and LW flux solvers with and without aerosol and cloud fraction, and
 the radiation driver on a small config-3 state at noon (1e-4 of each
 field's magnitude: the port sums the g-points and the (ln p, T)
 interpolation in another order, and the heating rates are differences of
-fluxes ~1e4 times larger than their float32 rounding).
+fluxes ~1e4 times larger than their float32 rounding).  Then the
+reference's radiation anchors (tests/test_radiation_anchors.py) on the
+port, with their inputs and envelopes: clear-sky OLR and surface SW, CO2
+doubling, and the gray limits of the two-stream.
 """
 
 import numpy as np
@@ -286,3 +289,97 @@ def test_radiation_driver_column_chunks(monkeypatch):
                                  jnp.float32(t_utc), julian_day=jnp.float32(jd))
     for name in RAD_OUT:
         assert _rel(jout[name], chunked[name]) <= 1e-4, name
+
+
+# -- the reference's radiation anchors (tests/test_radiation_anchors.py) on the
+# port: the same columns and the same physical envelopes
+
+
+def standard_column(nz=40, ncol=2, qv0=0.012, lwp_cloud=0.0):
+    """`tests/test_radiation.py::standard_column` in the port: an idealised
+    tropical-ish column, surface first, float32."""
+    p_w = np.linspace(1.0e5, 5.0e3, nz + 1)
+    p_lay = 0.5 * (p_w[:-1] + p_w[1:])
+    dp_lay = -(np.diff(p_w))
+    z = 16.0e3 * (1.0 - (p_lay / 1.0e5) ** 0.29)
+    t_lay = np.maximum(300.0 - 6.5e-3 * z, 210.0)
+    qv = qv0 * (p_lay / 1.0e5) ** 3
+    lwp = np.zeros(nz)
+    if lwp_cloud > 0:
+        lwp[nz // 3] = lwp_cloud
+
+    def rep(a):
+        return _t(np.repeat(a[:, None], ncol, 1))
+    return (rep(p_lay), rep(t_lay), rep(dp_lay), rep(qv), rep(lwp),
+            torch.full((ncol,), 300.0))
+
+
+def test_tropical_clear_sky_olr_window():
+    out = tlw.lw_fluxes(*standard_column(qv0=0.012))
+    olr = float(out["olr"][0])
+    assert 278.0 < olr < 302.0, f"tropical clear OLR {olr} outside window"
+
+
+def test_dry_column_olr_above_tropical():
+    """Less water vapor -> less trapping -> higher OLR, short of sigma T^4."""
+    olr_trop = float(tlw.lw_fluxes(*standard_column(qv0=0.012))["olr"][0])
+    olr_dry = float(tlw.lw_fluxes(*standard_column(qv0=0.002))["olr"][0])
+    sig_ts4 = 5.670e-8 * 300.0 ** 4
+    assert olr_trop + 15.0 < olr_dry < sig_ts4 - 80.0, (olr_trop, olr_dry)
+
+
+def test_co2_doubling_reduces_olr_by_a_few_wm2():
+    args = standard_column(qv0=0.012)
+    base = tgas.CO2_VMR
+    olr1 = float(tlw.lw_fluxes(*args)["olr"][0])
+    try:
+        tgas.CO2_VMR = 2.0 * base
+        tkt.load_tables.cache_clear()
+        olr2 = float(tlw.lw_fluxes(*args)["olr"][0])
+    finally:
+        tgas.CO2_VMR = base
+        tkt.load_tables.cache_clear()
+    d = olr2 - olr1
+    # instantaneous 2xCO2 TOA forcing is ~-2.5 to -4 W/m2 in line-by-line
+    # models: a generous envelope, the right sign and order of magnitude
+    assert -12.0 < d < -1.0, f"2xCO2 dOLR {d}"
+
+
+def test_surface_sw_overhead_sun_window():
+    p, t, dp, qv, lwp, _ = standard_column(qv0=0.002)
+    mu0 = torch.full((2,), 1.0)
+    alb = torch.full((2,), 0.1)
+    sfc = float(tsw.sw_fluxes(p, t, dp, qv, lwp, mu0, alb)["flux_dn"][0, 0])
+    assert 995.0 < sfc < 1120.0, f"dry overhead-sun surface SW {sfc}"
+    # the humid tropical column absorbs more: a lower surface total, still > 850
+    sfc_t = float(tsw.sw_fluxes(*standard_column(qv0=0.012)[:5], mu0, alb)["flux_dn"][0, 0])
+    assert 850.0 < sfc_t < sfc, (sfc_t, sfc)
+
+
+def test_clear_sky_planetary_albedo_plausible():
+    """TOA up / TOA down over a 0.1-albedo surface: clear-sky planetary
+    albedo near 10-17% (Rayleigh + surface)."""
+    p, t, dp, qv, lwp, _ = standard_column(qv0=0.008)
+    out = tsw.sw_fluxes(p, t, dp, qv, lwp, torch.full((2,), 1.0), torch.full((2,), 0.1))
+    a = float(out["flux_up"][-1, 0] / out["flux_dn"][-1, 0])
+    assert 0.08 < a < 0.20, a
+
+
+def test_gray_limit_direct_beam_is_beer_lambert():
+    """Pure absorber (ssa = 0): the two-stream's direct transmission is
+    exactly exp(-tau/mu0)."""
+    for tau, mu0 in ((0.3, 1.0), (1.0, 0.5), (3.0, 0.8)):
+        tt = torch.full((1, 1), tau)
+        t0 = tsw.two_stream(tt, torch.zeros_like(tt), torch.zeros_like(tt),
+                            torch.full((1,), mu0))[4]
+        np.testing.assert_allclose(float(t0[0, 0]), np.exp(-tau / mu0), rtol=1e-5)
+
+
+def test_gray_limit_conservative_scattering_reflects_everything():
+    """ssa = 1, asy = 0, tau -> inf: a semi-infinite conservative scatterer
+    reflects nearly all incident flux (R_dif -> 1)."""
+    tt = torch.full((1, 1), 200.0)
+    r_dif, t_dif, _, _, _ = tsw.two_stream(tt, torch.full((1, 1), 0.9999),
+                                           torch.zeros((1, 1)), torch.full((1,), 1.0))
+    assert float(r_dif[0, 0]) > 0.93
+    assert float(t_dif[0, 0]) < 0.05

@@ -251,8 +251,8 @@ print("OK")
     ({}, "hill2d_x", "item 9"),
 ])
 def test_unported_options_raise(change, case, item):
-    """What the port does not carry yet raises, naming the ROADMAP item that
-    brings it; the options of item 9 (specified boundaries, the polar
+    """Options that raised, naming their ROADMAP item, until that item was
+    ported: the options of item 9 (specified boundaries, the polar
     filter, analysis nudging, the hill2d_x case over terrain) and a mesh
     layout in ``cfg.parallel`` (item 10: the mesh itself is `Simulation`'s
     argument) build and step once, and their own tests hold them to the
@@ -279,9 +279,9 @@ def test_unported_options_raise(change, case, item):
 def test_unported_simulation_arguments_raise(arg, item):
     """`Simulation` takes the reference's mesh argument (item 10: a
     `parallel.mesh.Mesh`, here the 1 x 1 one that needs no process group;
-    a nest on a mesh raises, naming item 10b) and the boundary and fdda
-    arguments of item 9 (a `LateralBoundary`, moved to the Simulation's
-    device); each steps."""
+    a nest takes it too, item 10b, `test_torch_nest_mesh.py`) and the
+    boundary and fdda arguments of item 9 (a `LateralBoundary`, moved to
+    the Simulation's device); each steps."""
     _, tc = _cfgs(nx=8, ny=4, nz=6)
     grid, state = tideal.make_case(tc, "squall2d_x", device="cpu", bubble_amp=3.0)
     if arg == "mesh":

@@ -1,4 +1,5 @@
-"""Rank programs of the process-mesh tests (`test_torch_parallel.py`).
+"""Rank programs of the process-mesh tests (`test_torch_parallel.py`,
+`test_torch_nest_mesh.py`).
 
 `parallel.launch.spawn` runs each of these in fresh processes, one per
 rank of a gloo group on the CPU; each returns numpy results that the test
@@ -335,3 +336,87 @@ def mesh_errors(rank, device):
     except ValueError as e:
         out["uneven"] = str(e)
     return out
+
+
+# -- nests on a mesh (`test_torch_nest_mesh.py`) ------------------------------------
+
+
+def nest_cfg():
+    """`tests/test_nest.py::_cfg(nx=24, ny=8, nz=12)` in the port."""
+    return Config(domain=DomainConfig(nx=24, ny=8, nz=12, dx=3000.0, dy=3000.0,
+                                      ztop=12000.0, p_top=20000.0),
+                  time_control=TimeControl(dt=12.0),
+                  dynamics=DynamicsConfig(kvdif=20.0))
+
+
+# tests/test_nest.py:124; on a 2x2 mesh the child spans both seams of the
+# parent (x = 12, y = 4), and its own blocks are not the parent's
+NEST_SPEC = dict(i_start=8, j_start=2, nx_parent_cells=8, ny_parent_cells=4, ratio=3)
+# NEST_SPEC leaves no parent cell to feed back (4 rows less 3 skipped on
+# each side); this window's feedback covers parent cells 3-4 x 11-12,
+# across both seams
+FEEDBACK_SPEC = dict(i_start=8, j_start=0, nx_parent_cells=8, ny_parent_cells=8, ratio=3)
+# config 4 nested at a small size: a 24x24 child whose window and
+# feedback cells straddle both seams of a 16x16 parent
+ARC_NEST_SPEC = dict(i_start=4, j_start=4, nx_parent_cells=8, ny_parent_cells=8, ratio=3)
+
+
+def nested_runs(mesh, cases, device="cpu"):
+    """The nested runs of the mesh tests on `mesh` (None: one block).
+    `cases` maps a name to {"state", "grid": global numpy inputs of
+    `nest_cfg`, "spec", "feedback"}, or to None for config 4 nested (two-way,
+    built here, 2 parent steps).  The ``moving`` case steps, moves the
+    window one parent cell east, steps, follows the strongest updraft and
+    steps; the others take 3 parent steps.  Returns {name: (parent state,
+    child state, the child's i_start)} gathered on rank 0 (None
+    elsewhere), and for ``moving`` the (j, i) of the strongest column
+    before `follow_max_w` (rank 0) and the move it made (every rank)."""
+    from wrfchem_arc_interactions_tpu_torch.models import soundings
+    from wrfchem_arc_interactions_tpu_torch.models.nest import NestedSimulation, NestSpec
+    out, follow = {}, None
+    for name, case in cases.items():
+        if case is None:
+            cfg, grid, state = arc_case(16, 16, 10)
+            spec, feedback = ARC_NEST_SPEC, True
+        else:
+            cfg = nest_cfg()
+            state = state_from_numpy(case["state"], device)
+            grid = grid_from_numpy(case["grid"], device)
+            spec, feedback = case["spec"], case["feedback"]
+        nest = NestedSimulation(cfg, grid, state, NestSpec(**spec),
+                                soundings.constant_n2_theta(), feedback=feedback,
+                                mesh=mesh, device=device)
+        if name == "moving":
+            nest.advance(1)
+            nest.move(1, 0)
+            nest.advance(1)
+            w = gather({"w": nest.parent.state["w"]}, mesh)
+            at = None if w is None else divmod(int(w["w"].abs().amax(0).argmax()), cfg.domain.nx)
+            follow = (at, nest.follow_max_w())
+            nest.advance(1)
+        else:
+            nest.advance(2 if case is None else 3)
+        parent, child = nest.parent.gather_state(), nest.child.gather_state()
+        out[name] = None if parent is None else (_np(parent), _np(child), nest.spec.i_start)
+    return out, follow
+
+
+def nest_suite(rank, device, cases):
+    """4 ranks on (2,2): `nested_runs`, then a child that the mesh does not
+    split evenly, refused on every rank before any collective."""
+    from wrfchem_arc_interactions_tpu_torch.models import soundings
+    from wrfchem_arc_interactions_tpu_torch.models.nest import NestedSimulation, NestSpec
+    torch.set_num_threads(1)
+    mesh = make_mesh(2, 2, device="cpu")
+    runs, follow = nested_runs(mesh, cases)
+    res = {"runs": runs, "follow": follow, "all_gathers": mesh.all_gathers,
+           "all_gather_bytes": mesh.all_gather_bytes}
+    cfg = nest_cfg()
+    grid, state = bubble_case(cfg)
+    try:
+        NestedSimulation(cfg, grid, state, NestSpec(8, 2, 8, 3, 3),
+                         soundings.constant_n2_theta(), mesh=mesh)
+        res["uneven"] = None
+    except ValueError as e:
+        res["uneven"] = str(e)
+    return res

@@ -11,8 +11,11 @@ contains v_mean.  Both moments are conserved exactly by construction (the
 transfer is a permutation-like scatter, not a split).
 
 The per-bin data-dependent target index becomes a dense one-hot
-(nbin_src x nbin_dst) transfer matrix per cell — a small einsum over the bin
-axis, fully branchless, instead of the canonical per-bin DO-loop walk."""
+(nbin_src x nbin_dst) transfer matrix per cell — a small contraction over
+the bin axis, fully branchless, instead of the canonical per-bin DO-loop
+walk.  The port adds the source bins in order, one elementwise pass each:
+a library einsum picks its kernel by the number of cells, and on the card
+a block of a process mesh then rounds apart from the whole domain."""
 
 from __future__ import annotations
 
@@ -61,9 +64,10 @@ def remap(chem: Dict[str, torch.Tensor], nbin: int) -> Dict[str, torch.Tensor]:
 
     out = dict(chem)
     for s in list(mbins.AER_SPECIES) + ["water", "num"]:
-        stacked = torch.stack([chem[f"chem_{s}_a{b:02d}"]
-                             for b in range(1, nbin + 1)])
-        moved = torch.einsum("sd...,s...->d...", onehot, stacked)
+        per_bin = [chem[f"chem_{s}_a{b:02d}"] for b in range(1, nbin + 1)]
+        moved = onehot[0] * per_bin[0]
+        for src in range(1, nbin):
+            moved = moved + onehot[src] * per_bin[src]
         for b in range(1, nbin + 1):
             out[f"chem_{s}_a{b:02d}"] = moved[b - 1]
     return out

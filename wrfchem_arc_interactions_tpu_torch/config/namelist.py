@@ -6,9 +6,8 @@ option values means the same thing to both.  The reference parses
 `namelist.input` into a Registry-generated `model_config_rec` (canonical
 WRF: `frame/module_configure.F`) with groups &time_control, &domains,
 &physics, &dynamics, &chem; here the same role is played by a tree of
-frozen (hashable) dataclasses.  Options that the port does not carry yet
-raise `NotImplementedError` where the port reads them
-(`utils/support.py`).
+frozen (hashable) dataclasses.  An option that the port refuses raises
+`NotImplementedError` where the port reads it (`utils/support.py`).
 
 Option values deliberately mirror the reference's namelist vocabulary
 (e.g. ``mp_physics``, ``ra_sw_physics``, ``aer_ra_feedback``, ``chem_opt``,

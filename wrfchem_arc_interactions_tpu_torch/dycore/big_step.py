@@ -23,7 +23,9 @@ import torch
 
 from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import ddz_center, ddz_faces
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
-from wrfchem_arc_interactions_tpu_torch.ops.stencil import avg_z_centers_to_faces, win
+from wrfchem_arc_interactions_tpu_torch.ops.stencil import (
+    avg_z_centers_to_faces, column_sum, win,
+)
 from wrfchem_arc_interactions_tpu_torch.utils.constants import G
 
 
@@ -144,7 +146,7 @@ def omega_diagnosis(ru_pad, rv_pad, grid: Grid) -> Tuple[torch.Tensor, torch.Ten
     if grid.has_msf:
         div = (grid.msft * grid.msft)[None] * div
     dnw = grid.dnw.reshape(-1, 1, 1)
-    dmudt = torch.sum(dnw * div, dim=0)
+    dmudt = column_sum(dnw * div)
     incr = dnw * (-dmudt[None] - div)
     om = torch.cumsum(incr, dim=0)
     ww = torch.cat([torch.zeros_like(om[:1]), om], dim=0)

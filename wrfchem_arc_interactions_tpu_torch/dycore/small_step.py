@@ -26,7 +26,7 @@ import torch
 from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import ddz_center
 from wrfchem_arc_interactions_tpu_torch.dycore.tridiag import thomas
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
-from wrfchem_arc_interactions_tpu_torch.ops.stencil import win
+from wrfchem_arc_interactions_tpu_torch.ops.stencil import column_sum, win
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import overlap_stencil
 from wrfchem_arc_interactions_tpu_torch.utils.constants import G
 
@@ -162,7 +162,7 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
         div = dd["div"]
 
         # --- column mass and omega'' --------------------------------------
-        dmu_ac = torch.sum(dnw * div, dim=0)
+        dmu_ac = column_sum(dnw * div)
         mudf = dmu_ac
         mu = mu + dtau * (R["rmu"] + dmu_ac)
         incr = dnw * (-dmu_ac[None] - div)

@@ -137,7 +137,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
     """Advance the dynamical state one dt (physics tendencies held fixed)."""
     dyn = cfg.dynamics
     moist = cfg.moist_species()
-    scalars = advected_names(cfg)       # refuses unported configurations
+    scalars = advected_names(cfg)       # refuses the options check_config refuses
     ns_total = cfg.n_acoustic
     pt = phys_tend or {}
 

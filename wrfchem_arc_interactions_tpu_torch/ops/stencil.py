@@ -30,6 +30,15 @@ def interior(a: torch.Tensor) -> torch.Tensor:
     return win(a, 0, 0)
 
 
+def column_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum of `a` over its leading (level) axis, added in level order: a
+    running sum's last level.  A library sum over a leading axis orders its
+    additions by the width of the axes behind it, so a block of a process
+    mesh would round apart from the whole domain; the running sum adds each
+    column on its own, the same at any width, on the CPU and on the card."""
+    return torch.cumsum(a, dim=0)[-1]
+
+
 def avg_z_centers_to_faces(q: torch.Tensor, fnm: torch.Tensor,
                            fnp: torch.Tensor) -> torch.Tensor:
     """(nz, ...) mass-level values -> (nz+1, ...) w-level values; the

@@ -13,8 +13,10 @@ rank.  The process group's backend picks the transport:
   where every message is staged through host memory (NCCL refuses two
   ranks on one device).
 
-A `Mesh` also counts what its exchanges send (`exchanges`, `bytes_sent`),
-for the per-step traffic that `chip_smoke.py` prints.
+A `Mesh` also counts what its exchanges send (`exchanges`, `bytes_sent`)
+and, apart from them, the all-gathers of whole fields that a nest makes
+(`all_gathers`, `all_gather_bytes`: the global bytes each assembles on
+this rank), for the per-step traffic that `chip_smoke.py` prints.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ class Mesh:
         self.backend = backend          # None: one block and no process group
         self.exchanges = 0              # point-to-point messages sent
         self.bytes_sent = 0
+        self.all_gathers = 0            # collectives of `sharded.all_gather_fields`
+        self.all_gather_bytes = 0       # global bytes they assembled on this rank
 
     @property
     def size(self) -> int:

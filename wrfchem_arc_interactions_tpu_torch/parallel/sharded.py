@@ -9,7 +9,9 @@ global tensors on every rank), by the field table's partition specs
 the rank's device, and the
 step's halos come through the mesh-aware `HaloOps` that `halo_ops_for`
 builds.  `gather` brings the blocks back into global tensors on one rank
-(the output streams write from there).
+(the output streams write from there); `all_gather_fields` brings them to
+every rank, where a nest applies its global operators (the reference runs
+them as auto-sharded ops outside its `shard_map` regions).
 """
 
 from __future__ import annotations
@@ -73,18 +75,53 @@ def place_fields(fields: Mapping[str, torch.Tensor], mesh: Mesh, ny: int,
             for k, v in fields.items()}
 
 
-def place(state: State, grid: Grid, mesh: Mesh, cfg: Config) -> Tuple[State, Grid]:
-    """This rank's block of the global `state` and `grid`, on its device:
-    each state field is cut by its entry of the field table's partition
-    specs for `cfg` (a field the table does not hold raises)."""
-    block_shape(grid.ny, grid.nx, mesh)          # raises unless the split is even
+def place_state(state: State, mesh: Mesh, cfg: Config) -> State:
+    """This rank's block of the global `state` on its device: each field
+    cut by its entry of the field table's partition specs for `cfg` (a
+    field the table does not hold raises)."""
     specs = state_partition_specs(cfg, (AXIS_Y, AXIS_X))
     unknown = sorted(set(state) - set(specs))
     if unknown:
         raise KeyError(f"state fields not in the field table: {unknown}")
+    return {k: _cut(k, v, specs[k], mesh).to(mesh.device) for k, v in state.items()}
+
+
+def place(state: State, grid: Grid, mesh: Mesh, cfg: Config) -> Tuple[State, Grid]:
+    """This rank's block of the global `state` (`place_state`) and `grid`,
+    on its device."""
+    block_shape(grid.ny, grid.nx, mesh)          # raises unless the split is even
     g = dataclasses.replace(grid, **{k: _cut(k, getattr(grid, k), sp, mesh).to(mesh.device)
                                      for k, sp in grid_partition_specs(grid).items()})
-    return {k: _cut(k, v, specs[k], mesh).to(mesh.device) for k, v in state.items()}, g
+    return place_state(state, mesh, cfg), g
+
+
+def _by_dtype(tensors: Mapping[str, torch.Tensor]) -> Dict[torch.dtype, list]:
+    """The names of `tensors` grouped by dtype, in order: one flat message
+    per group."""
+    groups: Dict[torch.dtype, list] = {}
+    for k, v in tensors.items():
+        groups.setdefault(v.dtype, []).append(k)
+    return groups
+
+
+def _assemble(parts, names, tensors: Mapping[str, torch.Tensor],
+              mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Global tensors from every rank's flat message (`parts`, in group-rank
+    order, each the blocks of `names` concatenated), where the parts lie."""
+    out: Dict[str, torch.Tensor] = {}
+    off = 0
+    for k in names:
+        shape = tensors[k].shape
+        by, bx = shape[-2], shape[-1]
+        g = torch.empty(shape[:-2] + (by * mesh.mesh_y, bx * mesh.mesh_x),
+                        dtype=tensors[k].dtype, device=parts[0].device)
+        n = tensors[k].numel()
+        for r, p in enumerate(parts):
+            iy, ix = divmod(r, mesh.mesh_x)
+            g[..., iy * by:(iy + 1) * by, ix * bx:(ix + 1) * bx] = p[off:off + n].view(shape)
+        out[k] = g
+        off += n
+    return out
 
 
 def gather(tensors: Mapping[str, torch.Tensor], mesh: Optional[Mesh],
@@ -95,29 +132,34 @@ def gather(tensors: Mapping[str, torch.Tensor], mesh: Optional[Mesh],
     same names in the same order.  Without a mesh, host copies."""
     if mesh is None or mesh.size == 1:
         return {k: v.detach().cpu() for k, v in tensors.items()}
-    by_dtype: Dict[torch.dtype, list] = {}
-    for k, v in tensors.items():
-        by_dtype.setdefault(v.dtype, []).append(k)
     out: Dict[str, torch.Tensor] = {}
-    for dtype, names in by_dtype.items():
+    for names in _by_dtype(tensors).values():
         flat = torch.cat([tensors[k].detach().reshape(-1) for k in names])
         parts = mesh.gather(flat, dst)
-        if parts is None:
-            continue
-        parts = [p.cpu() for p in parts]
-        off = 0
-        for k in names:
-            shape = tensors[k].shape
-            by, bx = shape[-2], shape[-1]
-            g = torch.empty(shape[:-2] + (by * mesh.mesh_y, bx * mesh.mesh_x), dtype=dtype)
-            n = tensors[k].numel()
-            for r, p in enumerate(parts):
-                iy, ix = divmod(r, mesh.mesh_x)
-                g[..., iy * by:(iy + 1) * by, ix * bx:(ix + 1) * bx] = \
-                    p[off:off + n].view(shape)
-            out[k] = g
-            off += n
+        if parts is not None:
+            out.update(_assemble([p.cpu() for p in parts], names, tensors, mesh))
     return out if mesh.rank == dst else None
+
+
+def all_gather_fields(tensors: Mapping[str, torch.Tensor],
+                      mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """The global tensors on every rank's device, from every rank's blocks
+    (each tensor's trailing axes (y, x) split over the mesh): one
+    all-gather per dtype, counted in the mesh's `all_gathers` and
+    `all_gather_bytes`.  Every rank of the mesh must call it, with the
+    same names in the same order.  Without a mesh, or on a 1 x 1 mesh, the
+    tensors themselves."""
+    if mesh is None or mesh.size == 1:
+        return dict(tensors)
+    out: Dict[str, torch.Tensor] = {}
+    for names in _by_dtype(tensors).values():
+        flat = torch.cat([tensors[k].detach().reshape(-1) for k in names])
+        parts = mesh.all_gather(flat)
+        mesh.all_gathers += 1
+        mesh.all_gather_bytes += mesh.size * flat.numel() * flat.element_size()
+        out.update({k: v.to(mesh.device)
+                    for k, v in _assemble(parts, names, tensors, mesh).items()})
+    return {k: out[k] for k in tensors}
 
 
 def make_sharded_step(cfg: Config, grid: Grid, mesh: Mesh, step_fn: Callable, dt: float):

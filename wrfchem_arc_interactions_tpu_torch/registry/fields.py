@@ -235,6 +235,6 @@ def _phys_fields(cfg: Config) -> Tuple[FieldSpec, ...]:
 
 def field_table(cfg: Config) -> Tuple[FieldSpec, ...]:
     """The state table for this configuration, in the reference's order
-    (raises for configurations whose fields belong to a later slice)."""
+    (raises for the options that `utils.support.check_config` refuses)."""
     check_config(cfg)
     return _dyn_fields() + _moist_fields(cfg) + _phys_fields(cfg) + _chem_fields(cfg)
