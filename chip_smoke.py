@@ -48,9 +48,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    droplet number in at least 90% of the cells with cloud water,
    tau_aer_sw > 0, and the
    exact launch counts of all four kernels; then the synchronised phase
-   times, a profile of one chem call, and the Mie kernel on that call's own
-   inputs (distinct floor cells per warp, device time per bin, within
-   3.2e-4 of its plain version);
+   times, a profile of one chem call, and the Mie and ROS2 kernels on that
+   call's own inputs as the calls are made (distinct floor cells per warp,
+   device time per bin, within 3.2e-4 of its plain version; the ROS2
+   kernel bitwise);
 9. slice-8 phase: config 4 run as a user runs it
    (`_cfg8`): one `Simulation` with an output directory (history and
    restart every 300 s, auxhist every 600 s, all netCDF through the
@@ -75,7 +76,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    burden against the fluxes, cw_exchange's conservation and cloud-borne
    number in cloudy updrafts, and rain lowering the scavenged fields; the
    synchronised phase times, profiles of a chem call and a main step, the
-   Mie kernel on the 8 bins' own inputs;
+   Mie kernel on the 8 bins' own inputs and the ROS2 kernel on its own;
 12. slice-6 cross-check: 3 steps at 16x8x20 from noon on the card against
    the CPU;
 13. slice-7 phase: config 4 with WRF-Chem's usual
@@ -152,11 +153,29 @@ Phases (each raises on failure, and the script then exits non-zero):
    card with its assertions (30 min of the 2D squall line at 60x4x24 with
    its water budget within 5e-3, 600 s of the quarter_ss supercell);
 22. item 11: the banded-matmul fluxes (`ops/mxu_adv.py`, full float32
-   library products) against the stencil fluxes within 1e-6 relative.
+   library products) against the stencil fluxes within 1e-6 relative;
+23. slice-12 phase, this slice's main path (`config5_block_phase`, in a
+   process of its own with the allocator's expandable segments): one
+   card's block of BASELINE config 5 (1000x1000x60 on a 2x2 mesh of
+   cards), config 4's package at 500x500x60 with 107 scalars from noon
+   UTC through `Simulation`: the case's build time, 2 warm-up steps and a
+   20-step window (chem calls at steps 10 and 20, each in two blocks of
+   rows) with the exact launches, the window's peak memory and config 4's
+   physical checks; one synchronised call of each executable with its
+   peak memory above what it finds; profiles of one main step and one
+   chem call (device time by kernel, busy share); the four kernels on the
+   path's own inputs as the calls are made (the scalar advection and the
+   multi-tracer kernel bitwise, the latter's plain version over slices of
+   8 tracers; the Mie kernel within 3.2e-4; the ROS2 kernel bitwise, its
+   plain version in passes of 2^20 cells), each timed alone beside its
+   bound; the chem and rad calls on an interior 100x100 window equal to
+   the block's on those columns bit for bit; a restart of the block
+   written, read into a fresh `Simulation` and one step taken in each,
+   bitwise in every field, with the file's size and both times.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``; the kernels' ``launches`` are slice 11's
-window, summed over its four ranks and both domains.  Without a CUDA
+``{"ok": true, "device": {...}}``; the kernels' ``launches`` are the window
+of config 5's block (slice 12), the earlier paths' beside them.  Without a CUDA
 device it exits with code 1 and prints no result.  It imports nothing of
 JAX.
 """
@@ -166,6 +185,7 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -627,9 +647,11 @@ def cells_per_warp(nr_n, u):
     return 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1)
 
 
-def _mie_check(mie_kernel, label, nr_n, u, t):
-    """The kernel against its plain version on the same inputs: the errors."""
-    out = mie_kernel.cheb_eval(nr_n, u, t)
+def _mie_check(mie_kernel, label, nr_n, u, t, out=None):
+    """The kernel's output (`out`, else a call of it) against its plain
+    version on the same inputs: the errors."""
+    if out is None:
+        out = mie_kernel.cheb_eval(nr_n, u, t)
     ref = mie_kernel.cheb_eval_reference(nr_n, u, t)
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(o).all()) for o in out):
@@ -643,61 +665,125 @@ def _mie_check(mie_kernel, label, nr_n, u, t):
     return errs
 
 
+class _Checked:
+    """Check each call of functions of a module as it is made, on its own
+    inputs and result (no copies kept): `checks` maps a name to
+    check(args, kwargs, result), run after the real call.  The originals
+    come back after the block."""
+
+    def __init__(self, module, checks):
+        self.module, self.checks = module, checks
+        self.inner = {n: getattr(module, n) for n in checks}
+
+    def __enter__(self):
+        for n, check in self.checks.items():
+            def call(*args, _n=n, _check=check, **kw):
+                out = self.inner[_n](*args, **kw)
+                _check(args, kw, out)
+                return out
+            setattr(self.module, n, call)
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.checks:
+            setattr(self.module, n, self.inner[n])
+        return False
+
+
+def _recorder(calls):
+    """A `_Checked` check that appends each call's (args, kwargs, result) to
+    `calls`; dicts copied, as the caller may go on to assign into a dict it
+    got or gave."""
+    def record(args, kw, out):
+        calls.append((tuple(dict(a) if isinstance(a, dict) else a for a in args), kw,
+                      dict(out) if isinstance(out, dict) else out))
+    return record
+
+
 # calls of each dycore kernel compared on each path's own inputs, by path
 ON_PATH = {"advect_scalar_5_3": {}, "advect_tracers": {}}
 
 
-def dycore_on_path(step, label):
+def dycore_on_path(step, label, card=None, tracer_slice=None):
     """The scalar advection kernel and the multi-tracer kernel against their
-    plain versions, bitwise, on the inputs of their calls in one main step of
-    a path (`step` runs the step; the multi-tracer kernel's calls are those
-    of the path's stages, with and without the limiter, at its own scalar
-    count).  Records the number of calls compared in `ON_PATH`."""
+    plain versions, bitwise, on each of their calls in one main step of a
+    path (`step` runs the step), as the calls are made (`_Checked`); the
+    multi-tracer kernel's calls are those of the path's stages, with and
+    without the limiter, at its own scalar count.  Where `tracer_slice` is
+    given, the multi-tracer kernel's plain version runs over slices of that
+    many tracers (each tracer's update is its own; at config 5's block a
+    plain pass over all 107 would not fit beside the step).  With `card`,
+    the first call of each kernel, and of the multi-tracer kernel with the
+    limiter, is timed alone on its inputs beside its bound.  Records the
+    number of calls compared in `ON_PATH`; returns {"calls": {kernel:
+    calls}, and with `card` the times by kernel or limiter mode}."""
     from wrfchem_arc_interactions_tpu_torch.dycore import solve
     from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, tracers_kernel
-    kernels = {"advect_scalar_5_3": (adv_kernel.advect_scalar_5_3,
-                                     adv_kernel.advect_scalar_5_3_reference),
-               "advect_tracers": (tracers_kernel.advect_tracers,
-                                  tracers_kernel.advect_tracers_reference)}
-    seen = {name: [] for name in kernels}
-    inner = {name: getattr(solve, name) for name in kernels}
+    seen = {"advect_scalar_5_3": 0, "advect_tracers": 0}
+    shapes = {name: set() for name in seen}
+    timed = {}
 
-    def recording(name):
-        def call(*args, **kw):
-            seen[name].append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                     for a in args),
-                               {k: v.clone() if isinstance(v, torch.Tensor) else v
-                                for k, v in kw.items()}))
-            return inner[name](*args, **kw)
-        return call
+    def adv(args, kw, out):
+        ref = adv_kernel.advect_scalar_5_3_reference(*args, **kw)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"advect_scalar_5_3 on {label}'s inputs {tuple(args[0].shape)}: "
+                               f"max|d| {float((out - ref).abs().max())}, not bitwise equal")
+        del ref
+        seen["advect_scalar_5_3"] += 1
+        shapes["advect_scalar_5_3"].add((tuple(args[0].shape), None))
+        if card is not None and "advect_scalar_5_3" not in timed:
+            nz, ny, nx = out.shape
+            ms = _device_ms(lambda: adv_kernel.advect_scalar_5_3(*args, **kw), calls=10,
+                            trials=20)
+            timed["advect_scalar_5_3"] = {"shape": [nz, ny, nx], "ms": ms,
+                                          "bound_ms": _adv_bound(nz, ny, nx)[0]}
 
-    for name in kernels:
-        setattr(solve, name, recording(name))
-    try:
+    def tracers(args, kw, out):
+        q_pad, phi_old, pt = args[0], args[1], kw.get("pt")
+        nt = q_pad.shape[0]
+        per = tracer_slice or nt
+        for a in range(0, nt, per):
+            b = min(nt, a + per)
+            ref = tracers_kernel.advect_tracers_reference(
+                q_pad[a:b], phi_old[a:b], *args[2:],
+                **dict(kw, pt=None if pt is None else pt[a:b]))
+            if not torch.equal(out[a:b], ref):
+                raise RuntimeError(f"advect_tracers on {label}'s inputs {tuple(q_pad.shape)}, "
+                                   f"tracers {a}..{b - 1}, pd={kw.get('pd')}: max|d| "
+                                   f"{float((out[a:b] - ref).abs().max())}, not bitwise equal")
+            del ref
+        seen["advect_tracers"] += 1
+        shapes["advect_tracers"].add((tuple(q_pad.shape), kw.get("pd")))
+        mode = "pd_clip" if kw.get("pd") else "no_limiter"
+        if card is not None and mode not in timed:
+            nz, ny, nx = out.shape[1:]
+            ms = _device_ms(lambda: tracers_kernel.advect_tracers(*args, **kw), calls=2,
+                            trials=5, warmup=1)
+            bound = _tracers_bound(nt, nz, ny, nx, bool(kw.get("pd")))
+            timed[mode] = {"shape": [nt, nz, ny, nx], "ms": ms, "bound_ms": bound[0],
+                           "bound_by": bound[1]}
+
+    with _Checked(solve, {"advect_scalar_5_3": adv, "advect_tracers": tracers}):
         step()
         torch.cuda.synchronize()
-    finally:
-        for name in kernels:
-            setattr(solve, name, inner[name])
     if not seen["advect_scalar_5_3"]:
         raise RuntimeError(f"advect_scalar_5_3: no call in one step of {label}")
-    for name, (kernel, plain) in kernels.items():
-        shapes = set()
-        for args, kw in seen[name]:
-            out, ref = kernel(*args, **kw), plain(*args, **kw)
-            if not torch.equal(out, ref):
-                raise RuntimeError(f"{name} on {label}'s inputs {tuple(args[0].shape)} "
-                                   f"{kw.get('pd', '')}: max|d| "
-                                   f"{float((out - ref).abs().max())}, not bitwise equal")
-            shapes.add((tuple(args[0].shape), kw.get("pd")))
-            del out, ref
-        ON_PATH[name][label] = len(seen[name])
-        if seen[name]:
-            print(f"{name} (kernel) vs plain on the card, {label}'s own inputs: "
-                  f"{len(seen[name])} calls of one main step (inputs, limiter: "
-                  f"{sorted(shapes, key=str)}), max|d| = 0 (bitwise equal)")
-    del seen
+    for name, n in seen.items():
+        ON_PATH[name][label] = n
+        if n:
+            sliced = (f"; the plain version in slices of {tracer_slice} tracers"
+                      if tracer_slice and name == "advect_tracers" else "")
+            print(f"{name} (kernel) vs plain on the card, {label}'s own inputs: {n} calls of "
+                  f"one main step (inputs, limiter: {sorted(shapes[name], key=str)}), max|d| "
+                  f"= 0 (bitwise equal{sliced})")
+    for mode, m in timed.items():
+        print(f"{'advect_scalar_5_3' if mode == 'advect_scalar_5_3' else 'advect_tracers'} "
+              f"at {tuple(m['shape'])}{'' if mode == 'advect_scalar_5_3' else ', ' + mode} on "
+              f"{label}'s own inputs, alone: {m['ms']:.4f} ms per call, bound "
+              f"{m['bound_ms']:.4f} ms ({m.get('bound_by', 'bytes')}, "
+              f"{100.0 * m['bound_ms'] / m['ms']:.1f}% of it) [{card}]")
     torch.cuda.empty_cache()
+    return {"calls": dict(seen), **timed}
 
 
 def kernel_mie(dev, nz, ny, nx, nband=30):
@@ -744,61 +830,68 @@ def _cpw(nr_n, u) -> str:
             f"{100.0 * float((c == 1).float().mean()):.1f}% of warps in one cell")
 
 
-class _Recorded:
-    """Record the calls of functions of a module while a block runs: the
-    list of (args, kwargs, result) per name; the originals come back after."""
+def chem_on_path(chem_call, label, card=None, ros2_chunk=None):
+    """The Mie kernel and the ROS2 kernel against their plain versions on
+    each of their calls in one chem call of a path (`chem_call` makes it),
+    as the calls are made (`_Checked`): the Mie kernel within 3.2e-4 per
+    bin, the ROS2 kernel bitwise and within `_ros2_compare`'s limits, its
+    plain version and vectorised form in passes of `ros2_chunk` cells where
+    given.  Per Mie call the distinct floor cells per warp (what decides
+    whether the table loads are broadcasts).  With `card`, each call is
+    timed alone on its inputs beside its bound.  Returns {"mie_bins": [per
+    call], "ros2": [per call]}."""
+    from wrfchem_arc_interactions_tpu_torch.chem import gas, optics
+    from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel, ros2_kernel
+    bins, ros2 = [], []
 
-    def __init__(self, module, *names):
-        self.module, self.names = module, names
-        self.calls = {n: [] for n in names}
-        self.inner = {n: getattr(module, n) for n in names}
-
-    def __enter__(self):
-        for n in self.names:
-            def recording(*args, _n=n, **kw):
-                out = self.inner[_n](*args, **kw)
-                # the caller may go on to assign into a dict it got or gave
-                self.calls[_n].append((tuple(dict(a) if isinstance(a, dict) else a
-                                             for a in args), kw,
-                                       dict(out) if isinstance(out, dict) else out))
-                return out
-            setattr(self.module, n, recording)
-        return self.calls
-
-    def __exit__(self, *exc):
-        for n in self.names:
-            setattr(self.module, n, self.inner[n])
-        return False
-
-
-def capture_mie_inputs(fn):
-    """Run `fn` (a chem call) with the Mie kernel's inputs recorded: the
-    list of (nr_n, u, t) of its calls, one per bin."""
-    from wrfchem_arc_interactions_tpu_torch.chem import optics
-    with _Recorded(optics, "cheb_eval") as calls:
-        fn()
-    return [tuple(a.clone() for a in args) for args, _, _ in calls["cheb_eval"]]
-
-
-def mie_on_path(chem_call, card, label="config 4"):
-    """The Mie kernel on a path's own inputs (`label`): the distinct floor
-    cells per warp of each bin's call (what decides whether the table loads
-    are broadcasts) and the kernel's device time per call on each bin's
-    inputs.  Returns {bin: numbers}."""
-    from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel
-    per_bin = {}
-    for b, (nr_n, u, t) in enumerate(capture_mie_inputs(chem_call), start=1):
+    def mie(args, kw, out):
+        nr_n, u, t = args
         c = cells_per_warp(nr_n, u).float()
-        errs = _mie_check(mie_kernel, f"{label} bin {b}", nr_n, u, t)
-        ms = _device_ms(lambda: mie_kernel.cheb_eval(nr_n, u, t), calls=5, trials=20)
-        per_bin[b] = {"ms": ms, "elements": t.numel(), "max_abs_err": max(errs),
-                      "cells_per_warp_mean": float(c.mean()),
-                      "cells_per_warp_max": int(c.max()),
-                      "warps_in_one_cell": float((c == 1).float().mean())}
-        print(f"mie_cheb_eval on {label}'s own inputs, bin {b} ({t.numel()} elements): "
-              f"{_cpw(nr_n, u)}, at most {int(c.max())}; kernel {ms:.4f} ms per call "
-              f"[{card}]")
-    return per_bin
+        errs = _mie_check(mie_kernel, f"{label} Mie call {len(bins) + 1}", nr_n, u, t, out=out)
+        m = {"elements": t.numel(), "max_abs_err": max(errs),
+             "cells_per_warp_mean": float(c.mean()), "cells_per_warp_max": int(c.max()),
+             "warps_in_one_cell": float((c == 1).float().mean())}
+        if card is not None:
+            m["ms"] = _device_ms(lambda: mie_kernel.cheb_eval(nr_n, u, t), calls=2, trials=5,
+                                 warmup=1)
+            m["bound_ms"] = _mie_bound(t.numel())[0]
+            print(f"mie_cheb_eval on {label}'s own inputs, call {len(bins) + 1} "
+                  f"({t.numel()} elements): {_cpw(nr_n, u)}, at most {int(c.max())}; alone "
+                  f"{m['ms']:.4f} ms per call, bound {m['bound_ms']:.4f} ms (operations, "
+                  f"{100.0 * m['bound_ms'] / m['ms']:.1f}% of it) [{card}]")
+        bins.append(m)
+
+    def integrate(args, kw, out):
+        conc, k, dt_total = args[:3]
+        n_sub = args[3] if len(args) > 3 else kw.get("n_sub")
+        if n_sub is None:
+            n_sub = max(1, int(np.ceil(dt_total / gas.SUBSTEP_TARGET_S)))
+        kin = gas._kinetics()
+        err, max_abs, equal, err_vec = _ros2_compare(kin, ros2_kernel, conc, k, dt_total,
+                                                     n_sub, out=out, chunk=ros2_chunk)
+        if not equal:
+            raise RuntimeError(f"ros2_integrate on {label}'s inputs: max|d| {max_abs}, not "
+                               "bitwise equal")
+        r = {"cells": int(conc.shape[1]), "n_sub": n_sub, "max_abs_err": max_abs,
+             "max_rel_err": err, "bitwise": equal, "max_rel_err_vectorised": err_vec}
+        if card is not None:
+            ncell = conc.shape[1]
+            r["ms"] = _device_ms(lambda: ros2_kernel.ros2_integrate(kin, conc, k, dt_total,
+                                                                    n_sub),
+                                 calls=1, trials=5, warmup=1)
+            flops = ros2_kernel.flops_per_substep(kin)
+            r["bound_ms"], r["bound_by"] = _bound(4 * (2 * kin.ns + kin.nr) * ncell,
+                                                  n_sub * flops * ncell)
+            print(f"ros2_integrate on {label}'s own inputs at {ncell} cells, n_sub {n_sub}, "
+                  f"alone: {r['ms']:.4f} ms per call, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {100.0 * r['bound_ms'] / r['ms']:.1f}% of it) [{card}]")
+        ros2.append(r)
+
+    with _Checked(optics, {"cheb_eval": mie}), _Checked(gas, {"integrate": integrate}):
+        chem_call()
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"mie_bins": bins, "ros2": ros2}
 
 
 def tracer_inputs(dev, grid, nt):
@@ -912,23 +1005,34 @@ def _gas_inputs(ncell, seed, dev):
     return torch.from_numpy(conc).to(dev), k.contiguous().to(dev)
 
 
-def _ros2_compare(kin, ros2_kernel, conc, k, dt_total, n_sub):
-    """Kernel, plain version and vectorised form on the same inputs:
+def _ros2_compare(kin, ros2_kernel, conc, k, dt_total, n_sub, out=None, chunk=None):
+    """The kernel's output (`out`, else a call of it), its plain version and
+    the vectorised form on the same inputs, the last two in passes of
+    `chunk` cells where given (each cell's integration is its own):
     (max |a-b| / (|b| + 1e3) vs plain, max |a-b| vs plain, bitwise equal,
     max |a-b| / (|b| + 1e3) vs vectorised).  Raises past the limits."""
-    out = ros2_kernel.ros2_integrate(kin, conc, k, dt_total, n_sub)
-    ref = ros2_kernel.integrate_reference(kin, conc, k, dt_total, n_sub)
-    vec = conc
-    for _ in range(n_sub):
-        vec = kin.step_ros2(vec, k, dt_total / n_sub)
+    if out is None:
+        out = ros2_kernel.ros2_integrate(kin, conc, k, dt_total, n_sub)
     torch.cuda.synchronize()
     if out.shape != conc.shape or not (torch.isfinite(out).all() and (out >= 0).all()):
         raise RuntimeError("ros2_integrate: wrong shape, non-finite or negative output")
-    max_abs = float((out - ref).abs().max())
-    err = float(((out - ref).abs() / (ref.abs() + 1e3)).max())
-    err_vec = float(((out - vec).abs() / (vec.abs() + 1e3)).max())
-    equal = bool(torch.equal(out, ref))
-    print(f"ros2_integrate (kernel) vs plain on the card at {conc.shape[1]} cells, n_sub "
+    ncell = conc.shape[1]
+    err = max_abs = err_vec = 0.0
+    equal = True
+    for lo in range(0, ncell, chunk or ncell):
+        hi = min(ncell, lo + (chunk or ncell))
+        c, kk, o = conc[:, lo:hi].contiguous(), k[:, lo:hi].contiguous(), out[:, lo:hi]
+        ref = ros2_kernel.integrate_reference(kin, c, kk, dt_total, n_sub)
+        vec = c
+        for _ in range(n_sub):
+            vec = kin.step_ros2(vec, kk, dt_total / n_sub)
+        max_abs = max(max_abs, float((o - ref).abs().max()))
+        err = max(err, float(((o - ref).abs() / (ref.abs() + 1e3)).max()))
+        err_vec = max(err_vec, float(((o - vec).abs() / (vec.abs() + 1e3)).max()))
+        equal = equal and bool(torch.equal(o, ref))
+        del ref, vec
+    passes = f" (in passes of {chunk} cells)" if chunk and chunk < ncell else ""
+    print(f"ros2_integrate (kernel) vs plain on the card at {ncell} cells{passes}, n_sub "
           f"{n_sub}: max|a-b|/(|b|+1e3) = {err:.3g} (limit 1e-5; built with --fmad=false), "
           f"max|a-b| = {max_abs:.6g} molec/cm3, bitwise equal {equal}; "
           f"vs the vectorised form {err_vec:.3g} (limit 5e-3)")
@@ -1196,6 +1300,42 @@ def slice1_phase(dev, card, steps=10):
     return launches
 
 
+def _arc_checks(s, label, n_steps):
+    """Config 4's physical checks on a state after `n_steps`: finite fields,
+    no negative chem field, O3 within 0.02-0.06 ppmv of its 0.04 seed,
+    0 < max w < 60 m/s, droplet number in at least 90% of the cells with
+    cloud water, tau_aer_sw > 0 where the bins are seeded and OLR in
+    100-400 W m-2.  Returns (max w, O3 range, OLR range, cloudy cells,
+    those with droplets)."""
+    for k, v in s.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"{label}: non-finite {k} after {n_steps} steps")
+    neg = [k for k, v in s.items() if k.startswith("chem_") and float(v.min()) < 0.0]
+    if neg:
+        raise RuntimeError(f"{label}: negative chem fields {neg}")
+    o3 = (float(s["chem_o3"].min()), float(s["chem_o3"].max()))
+    if not (0.02 <= o3[0] and o3[1] <= 0.06):
+        raise RuntimeError(f"{label}: O3 {o3} ppmv outside 0.02-0.06 (seed 0.04)")
+    w_max = float(s["w"].max())
+    if not 0.0 < w_max < 60.0:
+        raise RuntimeError(f"{label}: max w = {w_max} m/s outside (0, 60)")
+    cloudy = s["qc"] > 1e-6
+    n_cloudy = int(cloudy.sum())
+    with_nc = int((s["nc"][cloudy] > 0.0).sum())
+    # at a cloud's evaporating or raining-out edge the scheme can leave a
+    # little water with its droplet number clipped to 0 (a few percent of
+    # the cloudy cells); the bulk of the cloud must carry droplets
+    if n_cloudy and with_nc < 0.9 * n_cloudy:
+        raise RuntimeError(f"{label}: droplet number in only {with_nc} of {n_cloudy} "
+                           "cells with cloud water")
+    if not float(s["tau_aer_sw"].min()) > 0.0:
+        raise RuntimeError(f"{label}: tau_aer_sw is not positive where the bins are seeded")
+    olr = (float(s["olr"].min()), float(s["olr"].max()))
+    if not (100.0 <= olr[0] and olr[1] <= 400.0):
+        raise RuntimeError(f"{label}: OLR {olr} outside 100-400 W m-2")
+    return w_max, o3, olr, n_cloudy, with_nc
+
+
 def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
     """BASELINE config 4 through `Simulation`: one 100-step window with 10
     chem calls and 1 rad call, the physical checks, the exact launch counts
@@ -1225,32 +1365,7 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
     wall = time.perf_counter() - t0
     launches = _counts()
     s = sim.state
-    for k, v in s.items():
-        if not bool(torch.isfinite(v).all()):
-            raise RuntimeError(f"config 4: non-finite {k} after {steps + 2} steps")
-    neg = [k for k, v in s.items() if k.startswith("chem_") and float(v.min()) < 0.0]
-    if neg:
-        raise RuntimeError(f"config 4: negative chem fields {neg}")
-    o3 = (float(s["chem_o3"].min()), float(s["chem_o3"].max()))
-    if not (0.02 <= o3[0] and o3[1] <= 0.06):
-        raise RuntimeError(f"config 4: O3 {o3} ppmv outside 0.02-0.06 (seed 0.04)")
-    w_max = float(s["w"].max())
-    if not 0.0 < w_max < 60.0:
-        raise RuntimeError(f"config 4: max w = {w_max} m/s outside (0, 60)")
-    cloudy = s["qc"] > 1e-6
-    n_cloudy = int(cloudy.sum())
-    with_nc = int((s["nc"][cloudy] > 0.0).sum())
-    # at a cloud's evaporating or raining-out edge the scheme can leave a
-    # little water with its droplet number clipped to 0 (a few percent of
-    # the cloudy cells); the bulk of the cloud must carry droplets
-    if n_cloudy and with_nc < 0.9 * n_cloudy:
-        raise RuntimeError(f"config 4: droplet number in only {with_nc} of {n_cloudy} "
-                           "cells with cloud water")
-    if not float(s["tau_aer_sw"].min()) > 0.0:
-        raise RuntimeError("config 4: tau_aer_sw is not positive where the bins are seeded")
-    olr = (float(s["olr"].min()), float(s["olr"].max()))
-    if not (100.0 <= olr[0] and olr[1] <= 400.0):
-        raise RuntimeError(f"config 4: OLR {olr} outside 100-400 W m-2")
+    w_max, o3, olr, n_cloudy, with_nc = _arc_checks(s, "config 4", steps + 2)
     n_chem = steps // sim.chem_every
     # theta takes the single-scalar kernel on 3 stages; the 107 scalars take
     # the multi-tracer kernel (two calls without the limiter and one with it
@@ -1289,7 +1404,8 @@ def slice4_phase(dev, card, steps=RAD_CHEM_EVERY):
           f"the main path's inputs")
     for t_us, count, key in rows[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
-    mie_path = mie_on_path(lambda: chem(sim.state, sim.grid, t_now), card)
+    mie_path = chem_on_path(lambda: chem(sim.state, sim.grid, t_now), "config 4",
+                            card)["mie_bins"]
     sim.sync()
     dev2_ms, n2, rows2 = _profile(lambda: sim.advance(1))     # step 107: main only
     print(f"profile of one config-4 main step: device busy {dev2_ms:.3f} ms in {n2} "
@@ -1682,7 +1798,8 @@ def slice6_phase(dev, card, steps=RAD_CHEM_EVERY):
 
     t_now = np.float32(sim.time_s)
     main, rad, chem = (sim._stepper(k) for k in ("main", "rad", "chem"))
-    with _Recorded(aux, "apply_emissions", "cw_exchange", "wet_scavenging") as calls:
+    calls = {n: [] for n in ("apply_emissions", "cw_exchange", "wet_scavenging")}
+    with _Checked(aux, {n: _recorder(v) for n, v in calls.items()}):
         chem(sim.state, sim.grid, t_now)
         torch.cuda.synchronize()
     if any(len(v) != 1 for v in calls.values()):
@@ -1713,7 +1830,8 @@ def slice6_phase(dev, card, steps=RAD_CHEM_EVERY):
           f"mie_cheb_eval {_per_call_us(rows, 'mie_cheb_eval') / 1e3:.4f} ms per launch")
     for t_us, count, key in rows[:6]:
         print(f"  {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
-    mie_path = mie_on_path(lambda: chem(sim.state, sim.grid, t_now), card, "slice 6")
+    mie_path = chem_on_path(lambda: chem(sim.state, sim.grid, t_now), "slice 6",
+                            card)["mie_bins"]
     if len(mie_path) != nbin:
         raise RuntimeError(f"slice 6: {len(mie_path)} Mie calls in one chem call, expected "
                            f"{nbin}")
@@ -2191,7 +2309,8 @@ def wide_phase(dev, card, steps=3):
     torch.cuda.empty_cache()
     chem = sim._stepper("chem")
     label = "config 3 at 1000x100x50"
-    mie_path = mie_on_path(lambda: chem(sim.state, sim.grid, t_now), card, label)
+    mie_path = chem_on_path(lambda: chem(sim.state, sim.grid, t_now), label,
+                            card)["mie_bins"]
     if len(mie_path) != 4:
         raise RuntimeError(f"{label}: {len(mie_path)} Mie calls in one chem call, expected 4")
     torch.cuda.empty_cache()
@@ -2254,55 +2373,34 @@ def on_path10(sim, label):
     """The four kernels against their plain versions on one rank's own
     inputs, at its block's shapes: every call of the scalar advection and
     multi-tracer kernels in one main step, bitwise (`dycore_on_path`; the
-    limited multi-tracer calls go through the wrapper's seam grids and the
+    limited multi-tracer call goes through the wrapper's seam grids and the
     exchange of r_hi's ring, `tracers_kernel._seam_stage`), then the Mie
-    and ROS2 calls of one chem call, within their limits.  Every rank calls
-    it in the same order: the seam stage and the plain multi-tracer update
-    pad through the mesh.  Returns the calls compared and the errors."""
-    from wrfchem_arc_interactions_tpu_torch.chem import gas
-    from wrfchem_arc_interactions_tpu_torch.ops import mie_kernel, ros2_kernel, tracers_kernel
-    with _Recorded(tracers_kernel, "_seam_stage") as seams:
+    and ROS2 calls of one chem call, within their limits (`chem_on_path`).
+    Every rank calls it in the same order: the seam stage and the plain
+    multi-tracer update pad through the mesh.  Returns the calls compared
+    and the errors."""
+    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
+    seams = []
+    with _Checked(tracers_kernel, {"_seam_stage": _recorder(seams)}):
         dycore_on_path(lambda: sim.advance(1), label)
-    n_seam = len(seams["_seam_stage"])
+    n_seam = len(seams)
     del seams
-    if n_seam < 2:
+    if n_seam != 1:
         raise RuntimeError(f"{label}: {n_seam} multi-tracer calls through the seam grids "
-                           "(the step's limited stage and its recheck expected)")
+                           "(the step's limited stage expected)")
     chem = sim._stepper("chem")
     t_now = np.float32(sim.time_s)
-    # the gas integration's calls, recorded where the chem driver makes them
-    # (the kernel's wrapper keeps its own module name for its count)
-    gas_calls, integrate = [], gas.integrate
-
-    def recording(conc, k, dt_total, n_sub=None):
-        inputs = (conc.clone(), k.clone(), dt_total, n_sub)
-        out = integrate(conc, k, dt_total, n_sub)
-        gas_calls.append((inputs, out))
-        return out
-
-    gas.integrate = recording
-    try:
-        mie_inputs = capture_mie_inputs(lambda: chem(sim.state, sim.grid, t_now))
-    finally:
-        gas.integrate = integrate
-    if len(mie_inputs) != 4 or len(gas_calls) != 1:
-        raise RuntimeError(f"{label}: {len(mie_inputs)} Mie and {len(gas_calls)} gas "
-                           "integrations in one chem call, expected 4 and 1")
-    mie_err = max(max(_mie_check(mie_kernel, f"{label} bin {b}", *args))
-                  for b, args in enumerate(mie_inputs, start=1))
-    del mie_inputs
-    (conc, k, dt_total, n_sub), path_out = gas_calls[0]
-    kin = gas._kinetics()
-    if n_sub is None:
-        n_sub = max(1, int(np.ceil(dt_total / gas.SUBSTEP_TARGET_S)))
-    if not torch.equal(ros2_kernel.ros2_integrate(kin, conc, k, dt_total, n_sub), path_out):
-        raise RuntimeError(f"{label}: the ROS2 kernel at n_sub {n_sub} does not reproduce "
-                           "the path's gas integration")
-    err, max_abs, equal, err_vec = _ros2_compare(kin, ros2_kernel, conc, k, dt_total, n_sub)
+    calls = chem_on_path(lambda: chem(sim.state, sim.grid, t_now), label)
+    if len(calls["mie_bins"]) != 4 or len(calls["ros2"]) != 1:
+        raise RuntimeError(f"{label}: {len(calls['mie_bins'])} Mie and {len(calls['ros2'])} "
+                           "gas integrations in one chem call, expected 4 and 1")
+    r = calls["ros2"][0]
     return {"bitwise_calls": {name: ON_PATH[name][label] for name in ON_PATH},
-            "seam_stage_calls": n_seam, "mie_bins": 4, "mie_max_abs_err": mie_err,
-            "ros2_cells": int(conc.shape[1]), "ros2_max_abs_err": max_abs,
-            "ros2_max_rel_err": err, "ros2_bitwise": equal, "ros2_rel_err_vectorised": err_vec}
+            "seam_stage_calls": n_seam, "mie_bins": 4,
+            "mie_max_abs_err": max(b["max_abs_err"] for b in calls["mie_bins"]),
+            "ros2_cells": r["cells"], "ros2_max_abs_err": r["max_abs_err"],
+            "ros2_max_rel_err": r["max_rel_err"], "ros2_bitwise": r["bitwise"],
+            "ros2_rel_err_vectorised": r["max_rel_err_vectorised"]}
 
 
 def slice10_phase(dev, card, steps=WINDOW10, shape=(100, 100, 50)):
@@ -2737,6 +2835,261 @@ def slice11_phase(dev, card, steps=WINDOW11, shape=(100, 100, 50), spec=SPEC11):
     return launches, numbers
 
 
+# one card's block of BASELINE config 5 (1000x1000x60 on a 2x2 mesh of
+# cards): (nx, ny, nz)
+CONFIG5_BLOCK = (500, 500, 60)
+WINDOW12 = 20                  # steps 2..21: chem calls at 10 and 20
+WIDTH12 = (200, 200, 100, 100)  # the width check's interior window (y0, x0, ny, nx)
+TRACER_SLICE12 = 8             # tracers per plain pass of the multi-tracer check
+ROS2_CHUNK12 = 1 << 20         # cells per plain pass of the ROS2 check
+
+
+def _window_state(state, cfg, y0, x0, ny, nx):
+    """The (y0, x0) window of `state` (every field split over (y, x) by the
+    field table cut)."""
+    from wrfchem_arc_interactions_tpu_torch.registry.state import state_partition_specs
+    specs = state_partition_specs(cfg)
+    return {k: v[..., y0:y0 + ny, x0:x0 + nx].contiguous() if "mx" in specs[k] else v
+            for k, v in state.items()}
+
+
+def _executable(fn, dev):
+    """One synchronised call of `fn`: (ms, peak bytes above those held
+    before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    return ms, peak
+
+
+def _width_check(sim, t_now, window, label):
+    """The chem call and the rad call on an interior window cut out of the
+    block (grid and state) and on the block: every output field equal on
+    the window's columns, bit for bit (what a mesh of blocks of any width
+    relies on).  Returns {call: fields the call wrote}."""
+    y0, x0, wy, wx = window
+    grid_w = _block_grid(sim.grid, y0, x0, wy, wx)
+    state_w = _window_state(sim.state, sim.cfg, y0, x0, wy, wx)
+    written = {}
+    for key in ("chem", "rad"):
+        fn = sim._stepper(key)
+        whole = fn(sim.state, sim.grid, t_now)
+        part = fn(state_w, grid_w, t_now)
+        cut = _window_state(whole, sim.cfg, y0, x0, wy, wx)
+        if set(cut) != set(part):
+            raise RuntimeError(f"{label}: the {key} call's fields differ between block "
+                               "and window")
+        differ = {k: float((cut[k].double() - part[k].double()).abs().max())
+                  for k in part if not torch.equal(cut[k], part[k])}
+        if differ:
+            raise RuntimeError(f"{label}: the {key} call on the {wy}x{wx} window differs "
+                               f"from the block's on those columns: max|d| {differ}")
+        written[key] = sorted(k for k in whole if whole[k] is not sim.state[k])
+        del whole, part, cut
+        torch.cuda.empty_cache()
+    return written
+
+
+def _restart_round_trip(sim, label):
+    """A restart at the end of the window written and timed, read into a
+    fresh `Simulation`, one step in each: the two states bit for bit equal
+    in every field.  Returns the numbers."""
+    import os
+    import shutil
+    import tempfile
+    from wrfchem_arc_interactions_tpu_torch.io import history as hio
+    from wrfchem_arc_interactions_tpu_torch.io import netcdf as ncio
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.registry.state import restart_names
+    if not ncio.available():
+        raise RuntimeError(f"{label}: the native netCDF backend did not build: "
+                           f"{ncio.unavailable_reason()}")
+    cfg = sim.cfg
+    names = set(restart_names(cfg))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/restart_{sim.step_idx:06d}.nc"
+        free = shutil.disk_usage(tmp).free
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hio.write_restart(path, cfg, sim.state, sim.step_idx, sim.time_s)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        # the fields outside the restart set keep the template's values:
+        # copies, so that the two runs share no tensor
+        template = {k: v if k in names else v.clone() for k, v in sim.state.items()}
+        t0 = time.perf_counter()
+        restored, step, t_s = hio.read_restart(path, cfg, template)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    if (step, t_s) != (sim.step_idx, sim.time_s):
+        raise RuntimeError(f"{label}: restart at step {step}, time {t_s}; expected "
+                           f"{sim.step_idx}, {sim.time_s}")
+    fresh = Simulation(cfg, sim.grid, restored, device=sim.device)
+    fresh.step_idx, fresh.time_s = step, t_s
+    del template, restored
+    for s in (sim, fresh):
+        s.advance(1)
+    sim.sync()
+    differ = [k for k in sim.state if not torch.equal(sim.state[k], fresh.state[k])]
+    if set(sim.state) != set(fresh.state) or differ:
+        raise RuntimeError(f"{label}: one step after the restart differs from the unbroken "
+                           f"run in {len(differ)} fields {differ[:8]}")
+    return {"bytes": size, "write_s": write_s, "read_s": read_s, "fields": len(names),
+            "fields_compared": len(sim.state), "disk_free_bytes": free}
+
+
+def config5_block_rank(rank, device, card):
+    """`config5_block_phase` in a process of its own (one rank of
+    `parallel.launch.spawn`), which `main` starts with the allocator's
+    expandable segments: the block's step allocates and frees tensors of
+    0.1-7 GB, whose freed pieces in fixed segments serve the next sizes
+    badly (alone in its process with the default allocator the block
+    peaked at 77.8 GiB reserved of 79.2; beside the script's process, which
+    holds its context and its earlier paths' tensors, there is less room).
+    The earlier paths keep the default allocator."""
+    return config5_block_phase(torch.device(device), card)
+
+
+def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=WIDTH12):
+    """Slice 12's main path: one card's block of BASELINE config 5, config
+    4's package (`_cfg4`) at 500x500x60 from noon UTC through `Simulation`:
+    the case's build time, 2 warm-up steps (both alarms ring at step 0),
+    a 20-step window (chem calls at steps 10 and 20) with its exact
+    launches, peak memory and config 4's physical checks; each executable's
+    synchronised time and peak above what it finds; profiles of one main
+    step and one chem call; the four kernels on the path's own inputs,
+    each timed alone beside its bound (`dycore_on_path`, `chem_on_path`,
+    the plain versions over slices of the tracers and passes of the
+    cells); the chem and rad calls on an
+    interior window against the block (`_width_check`); a restart round
+    trip (`_restart_round_trip`).  Returns (the window's launches, the
+    numbers)."""
+    from wrfchem_arc_interactions_tpu_torch.chem.driver import row_blocks
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
+    label = "config 5's block"
+    cfg = _cfg4(*shape, start_date="2000-06-20_12:00:00")
+    d = cfg.domain
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
+    state = _seed4(state)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sim = Simulation(cfg, grid, state, device=dev)
+    del grid, state
+    nt = len(advected_names(cfg))
+    state_bytes = sum(v.numel() * v.element_size() for v in sim.state.values())
+    print(f"case squall2d_x {d.nx}x{d.ny}x{d.nz} (config 4's package, {len(sim.state)} "
+          f"fields, {nt} advected scalars, {state_bytes / 2**30:.3f} GiB of state) built in "
+          f"{build_s:.2f} s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    if not (nt == 107 and sim.rad_every == 100 and sim.chem_every == 10):
+        raise RuntimeError(f"{label}: {nt} scalars, rad every {sim.rad_every}, chem every "
+                           f"{sim.chem_every}; expected 107, 100, 10")
+    t0 = time.perf_counter()
+    sim.advance(2)                  # warm-up: both alarms ring at step 0
+    sim.sync()
+    warm_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.advance(steps)              # steps 2..21: chem at 10 and 20
+    sim.sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak_window = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    n_chem = sum(1 for n in range(2, 2 + steps) if n % sim.chem_every == 0)
+    # a chem call runs in blocks of rows, each launching the Mie kernel
+    # once per bin and the ROS2 kernel once
+    blocks = len(row_blocks(d.ny, d.nx, d.nz))
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
+            "mie_cheb_eval": 4 * blocks * n_chem, "ros2_integrate": blocks * n_chem}
+    if launches != want:
+        raise RuntimeError(f"{label}: kernel launches in the {steps}-step window {launches}, "
+                           f"expected {want}")
+    w_max, o3, olr, n_cloudy, with_nc = _arc_checks(sim.state, label, steps + 2)
+    ms_step = wall / steps * 1e3
+    print(f"slice 12 ({label}): {steps} steps of {d.nx}x{d.ny}x{d.nz} after 2 warm-up steps "
+          f"({warm_s:.2f} s, one rad and one chem call), {n_chem} chem calls in the window, "
+          f"each in {blocks} blocks of rows: "
+          f"{ms_step:.3f} ms/step, {d.nx * d.ny * d.nz / (wall / steps) / 1e6:.4f} M "
+          f"gridpoints/s, peak memory since the case {peak_window / 2**30:.3f} GiB "
+          f"allocated, {peak_reserved / 2**30:.3f} GiB reserved [{card}]; "
+          f"max w {w_max:.3f} m/s, cloudy cells {n_cloudy} ({with_nc} with droplets), O3 "
+          f"{o3[0]:.5f}-{o3[1]:.5f} ppmv, OLR {olr[0]:.1f}-{olr[1]:.1f} W m-2, tau_aer_sw "
+          f"{float(sim.state['tau_aer_sw'].min()):.4g}-"
+          f"{float(sim.state['tau_aer_sw'].max()):.4g}; kernel launches {launches}")
+
+    t_now = np.float32(sim.time_s)
+    execs = {}
+    for key in ("main", "rad", "chem"):
+        fn = sim._stepper(key)
+        ms, peak = _executable(lambda: fn(sim.state, sim.grid, t_now), dev)
+        execs[key] = {"ms": ms, "peak_above_bytes": peak}
+    held = torch.cuda.memory_allocated(dev)
+    print(f"{label}, one synchronised call of each executable (time, peak above the "
+          f"{held / 2**30:.3f} GiB held before it): " + ", ".join(
+              f"{k} {v['ms']:.1f} ms, {v['peak_above_bytes'] / 2**30:.3f} GiB"
+              for k, v in execs.items()))
+    main, chem = sim._stepper("main"), sim._stepper("chem")
+    dev_main, n_main, rows_main = _profile(lambda: main(sim.state, sim.grid, t_now))
+    dev_chem, n_chem_k, rows_chem = _profile(lambda: chem(sim.state, sim.grid, t_now))
+    busy = 100.0 * (dev_main + dev_chem / sim.chem_every) / ms_step
+    print(f"profile of one main step of {label}: device busy {dev_main:.3f} ms in {n_main} "
+          f"kernels; of one chem call {dev_chem:.3f} ms in {n_chem_k} kernels; against the "
+          f"unprofiled {ms_step:.3f} ms/step the device is busy {busy:.1f}% (main step + a "
+          f"tenth of a chem call); advect_tracers grids: {_tracer_grids_us(rows_main)}")
+    for what, rows in (("main step", rows_main), ("chem call", rows_chem)):
+        for t_us, count, key in rows[:8]:
+            print(f"  {what} {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    torch.cuda.empty_cache()
+    dycore = dycore_on_path(lambda: main(sim.state, sim.grid, t_now), label, card,
+                            tracer_slice=TRACER_SLICE12)
+    if dycore["calls"] != {"advect_scalar_5_3": 3, "advect_tracers": 3}:
+        raise RuntimeError(f"{label}: {dycore['calls']} kernel calls in one main step, "
+                           "expected 3 and 3")
+    chem_k = chem_on_path(lambda: chem(sim.state, sim.grid, t_now), label, card,
+                          ros2_chunk=ROS2_CHUNK12)
+    if len(chem_k["mie_bins"]) != 4 * blocks or len(chem_k["ros2"]) != blocks:
+        raise RuntimeError(f"{label}: {len(chem_k['mie_bins'])} Mie and "
+                           f"{len(chem_k['ros2'])} gas integrations in one chem call, "
+                           f"expected {4 * blocks} and {blocks}")
+    written = _width_check(sim, t_now, window, label)
+    y0, x0, wy, wx = window
+    print(f"{label}: the chem call ({len(written['chem'])} fields written) and the rad call "
+          f"({len(written['rad'])}) on the {wy}x{wx} window at ({y0}, {x0}) equal the "
+          f"block's on those columns bit for bit")
+    restart = _restart_round_trip(sim, label)
+    print(f"{label}: restart of {restart['bytes'] / 2**30:.3f} GiB ({restart['fields']} "
+          f"fields) written in {restart['write_s']:.2f} s and read in {restart['read_s']:.2f} "
+          f"s ({restart['disk_free_bytes'] / 2**30:.1f} GiB free where it was written); one "
+          f"step after it equals the unbroken run bit for bit in all "
+          f"{restart['fields_compared']} fields [{card}]")
+    numbers = {"shape": [d.nx, d.ny, d.nz], "scalars": nt, "state_bytes": state_bytes,
+               "chem_row_blocks": blocks,
+               "case_build_s": build_s, "window_steps": steps, "ms_step": ms_step,
+               "peak_memory_bytes": peak_window, "peak_reserved_bytes": peak_reserved,
+               "executables": execs,
+               "held_bytes": held, "device_ms": {"main": dev_main, "chem": dev_chem},
+               "kernels_per_call": {"main": n_main, "chem": n_chem_k}, "busy_pct": busy,
+               "profile_main": [[t / 1e3, n, k[:90]] for t, n, k in rows_main[:12]],
+               "profile_chem": [[t / 1e3, n, k[:90]] for t, n, k in rows_chem[:12]],
+               "dycore_on_path": dycore, "chem_on_path": chem_k,
+               "width_window": list(window),
+               "width_fields_written": {k: len(v) for k, v in written.items()},
+               "restart": restart,
+               "launches": launches}
+    del sim
+    return launches, numbers
+
+
 SQUALL_MOIST = ("qv", "qc", "qr")
 
 
@@ -2977,6 +3330,7 @@ def main(argv=None) -> int:
     from wrfchem_arc_interactions_tpu_torch.chem import gas
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.ops import build, ros2_kernel
+    from wrfchem_arc_interactions_tpu_torch.parallel import launch
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -3069,6 +3423,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches11, numbers11 = slice11_phase(dev, card)
     torch.cuda.empty_cache()
+    # config 5's block in a process of its own, with expandable segments
+    # (`config5_block_rank`): the child takes the environment at its start
+    sys.stdout.flush()
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        launches12, numbers12 = launch.spawn(config5_block_rank, 1, "gloo", ["cuda:0"],
+                                             args=(card,), timeout_s=900.0)[0]
+    finally:
+        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    for name, n in numbers12["dycore_on_path"]["calls"].items():
+        ON_PATH[name]["config 5's block"] = n
+    torch.cuda.empty_cache()
     numbers_items = {"item12": item12_card_checks(dev, card), "item11": mxu_card_check(dev, card)}
     entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
     entries["advect_tracers"]["max_abs_err"] = max(
@@ -3078,7 +3444,7 @@ def main(argv=None) -> int:
         entries["mie_cheb_eval"]["max_abs_err"],
         *(b["max_abs_err"] for path in ("config4_inputs", "slice6_inputs",
                                         "config3_1000x100_inputs")
-          for b in entries["mie_cheb_eval"][path].values()))
+          for b in entries["mie_cheb_eval"][path]))
     for name, key in (("mie_cheb_eval", "mie_max_abs_err"),
                       ("ros2_integrate", "ros2_max_abs_err")):
         for label, numbers in (("slice10", numbers10), ("slice11", numbers11)):
@@ -3086,15 +3452,24 @@ def main(argv=None) -> int:
                 r["on_path"][key] for r in numbers["ranks"])
             entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
                                                entries[name][f"{label}_on_path_max_abs_err"])
+    c5d, c5c = numbers12["dycore_on_path"], numbers12["chem_on_path"]
+    entries["advect_scalar_5_3"]["config5_block"] = c5d["advect_scalar_5_3"]
+    entries["advect_tracers"]["config5_block"] = {m: c5d[m] for m in ("no_limiter", "pd_clip")}
+    entries["mie_cheb_eval"]["config5_block"] = c5c["mie_bins"]
+    entries["ros2_integrate"]["config5_block"] = c5c["ros2"]
+    entries["mie_cheb_eval"]["max_abs_err"] = max(entries["mie_cheb_eval"]["max_abs_err"],
+                                                  *(b["max_abs_err"] for b in c5c["mie_bins"]))
+    entries["ros2_integrate"]["max_abs_err"] = max(entries["ros2_integrate"]["max_abs_err"],
+                                                   *(r["max_abs_err"] for r in c5c["ros2"]))
     for name, by_path in ON_PATH.items():
         entries[name]["bitwise_on_path_calls"] = by_path
-    # "launches" is the count of this slice's main path, the slice-11 window
-    # (config 4 nested on a 2x2 mesh: the four ranks' launches of both
-    # domains summed), which runs all four kernels on every rank; the earlier
+    # "launches" is the count of this slice's main path, the window of
+    # config 5's per-card block, which runs all four kernels; the earlier
     # paths' counts stand beside it
     for name, entry in entries.items():
-        entry["launches"] = launches11[name]
-        entry["launches_by_path"] = {"slice11_window_4_ranks": launches11[name],
+        entry["launches"] = launches12[name]
+        entry["launches_by_path"] = {"config5_block_window": launches12[name],
+                                     "slice11_window_4_ranks": launches11[name],
                                      "slice11_window_by_rank_and_domain": [
                                          {w: r["launches"][w][name] for w in r["launches"]}
                                          for r in numbers11["ranks"]],
@@ -3109,14 +3484,17 @@ def main(argv=None) -> int:
                                      "config3_window": launches3[name],
                                      "slice1_10_steps": launches1[name],
                                      "config3_1000x100_3_steps": launches_wide[name]}
-        if (launches9[name] < 1 or min(entry["launches_by_path"]["slice10_window_by_rank"]) < 1
+        if (launches12[name] < 1 or launches9[name] < 1
+                or min(entry["launches_by_path"]["slice10_window_by_rank"]) < 1
                 or min(min(d.values()) for d in
                        entry["launches_by_path"]["slice11_window_by_rank_and_domain"]) < 1):
-            raise RuntimeError(f"{name} was not launched on slice 9's path, on every rank "
-                               "of slice 10's or on both domains of every rank of slice 11's")
+            raise RuntimeError(f"{name} was not launched on config 5's block, on slice 9's "
+                               "path, on every rank of slice 10's or on both domains of "
+                               "every rank of slice 11's")
     print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8,
                       "slice9": numbers9, "slice10": numbers10, "slice11": numbers11,
                       **numbers_items}))
+    print(json.dumps({"config5_block": numbers12}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))

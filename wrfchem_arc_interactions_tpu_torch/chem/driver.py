@@ -24,7 +24,8 @@ bin).  Config 3 (fixed MOSAIC bins, no gas mechanism) runs 1 and 8; config
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,11 +35,14 @@ from wrfchem_arc_interactions_tpu_torch.config import Config
 from wrfchem_arc_interactions_tpu_torch.config.namelist import ChemOpt
 from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import diagnose
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
+from wrfchem_arc_interactions_tpu_torch.grid.grid import TENSOR_FIELDS
+from wrfchem_arc_interactions_tpu_torch.physics.radiation import bands as rbands
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import (
     JULIAN_DAY, cos_zenith,
 )
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
+from wrfchem_arc_interactions_tpu_torch.utils.device import pass_slices
 
 
 def _nbin(cfg: Config) -> int:
@@ -49,6 +53,22 @@ def _has_gas(cfg: Config) -> bool:
     return cfg.chem.chem_opt in (ChemOpt.CBMZ_MOSAIC_4BIN, ChemOpt.CBMZ_MOSAIC_8BIN)
 
 
+def row_blocks(ny: int, nx: int, nz: int) -> List[Tuple[int, int]]:
+    """The (y0, y1) row blocks a chem call over (nz, ny, nx) cells runs in
+    (`utils.device.pass_slices`): its largest temporaries are the aerosol
+    optics' (band, level, column) fields of one bin, at all SW and LW
+    bands."""
+    return pass_slices(ny, nx * nz * (rbands.NBND_SW + rbands.NBND_LW))
+
+
+def _rows(fields, ny: int, nx: int, y0: int, y1: int):
+    """Rows y0..y1-1 of every tensor whose trailing axes are (ny, nx), as
+    contiguous copies; anything else whole."""
+    return {k: v[..., y0:y1, :].contiguous()
+            if isinstance(v, torch.Tensor) and v.dim() >= 2 and tuple(v.shape[-2:]) == (ny, nx)
+            else v for k, v in fields.items()}
+
+
 def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
                 time_s=0.0, emissions: Optional[Dict[str, torch.Tensor]] = None,
                 julian_day=JULIAN_DAY) -> State:
@@ -56,7 +76,43 @@ def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
     time since the run's day start) and `julian_day` set the sun for the
     photolysis rates.  `emissions` ({species or ``elev_`` species: (ny, nx)
     flux, ``heat_mw``: (ny, nx)}) feed stage 2 under ``emiss_opt``.  (The
-    reference also takes the halo context, which no stage reads.)"""
+    reference also takes the halo context, which no stage reads.)
+
+    Every stage is column-local, so a domain whose temporaries would pass
+    `utils.device.PASS_ELEMENTS` runs in blocks of rows (`row_blocks`), each
+    as a domain of its own, and its fields are joined again, with the
+    transient memory of one block: the same result bit for bit on the card,
+    and on the CPU where each block holds a multiple of 32 columns (there
+    PyTorch computes the last n mod 32 elements of an elementwise exp, log
+    or pow in a scalar loop that rounds differently)."""
+    ny, nx = grid.ny, grid.nx
+    blocks = row_blocks(ny, nx, state["t"].shape[0])
+    if len(blocks) == 1:
+        return _chem_columns(state, grid, cfg, dt, time_s, emissions, julian_day)
+    out = dict(state)
+    written: Dict[str, torch.Tensor] = {}
+    for y0, y1 in blocks:
+        part_state = _rows(state, ny, nx, y0, y1)
+        part_grid = dataclasses.replace(grid, **_rows(
+            {k: getattr(grid, k) for k in TENSOR_FIELDS}, ny, nx, y0, y1))
+        part = _chem_columns(part_state, part_grid, cfg, dt, time_s,
+                             None if emissions is None else _rows(emissions, ny, nx, y0, y1),
+                             julian_day)
+        for k, v in part.items():
+            if v is part_state.get(k):
+                continue
+            if k not in written:
+                written[k] = torch.empty(v.shape[:-2] + (ny, nx), dtype=v.dtype,
+                                         device=v.device)
+            written[k][..., y0:y1, :] = v
+        del part, part_state, part_grid
+    out.update(written)
+    return out
+
+
+def _chem_columns(state: State, grid: Grid, cfg: Config, dt: float, time_s,
+                  emissions: Optional[Dict[str, torch.Tensor]], julian_day) -> State:
+    """`chem_driver` on one block of columns."""
     ch = cfg.chem
     nbin = _nbin(cfg)
     diag = diagnose(state, grid, cfg.moist_species())

@@ -23,6 +23,7 @@ from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import win
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
+from wrfchem_arc_interactions_tpu_torch.utils.device import pass_slices
 
 CS_SMAG = 0.25
 
@@ -107,11 +108,15 @@ def tke_exchange_and_tendency(state, grid: Grid, dz):
 
 def diffusion_tendencies(state, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
                          scalars: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
-    """phys_tend contributions from subgrid mixing (uncoupled rates)."""
+    """phys_tend contributions from subgrid mixing (uncoupled rates).  The
+    scalars go through the operators stacked, in passes over slices of the
+    stack (`utils.device.pass_slices`; config 5's 500x500x60 block, whose
+    107 scalars would hold ~40 GB of temporaries in one, takes 6).  Each
+    scalar's arithmetic is its own, so the passes give the one-pass result
+    bit for bit.  On a mesh each pass pads its slice through the halo
+    exchange: one exchange of the stack per pass."""
     dyn = cfg.dynamics
     g = hx.pad_many({"u": state["u"], "v": state["v"], "t": state["t"]}, 3)
-    sc = torch.stack([state[q] for q in scalars]) if scalars else None
-    sc_pad = hx.pad(sc, 3) if scalars else None
     dtke = None
     if dyn.km_opt == KMOpt.TKE_15:
         ph_full = grid.phb + state["ph"]
@@ -125,7 +130,6 @@ def diffusion_tendencies(state, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
     out["u"] = _hdiff(g["u"], k_pad, grid)
     out["v"] = _hdiff(g["v"], k_pad, grid)
     out["th"] = _hdiff(g["t"], k_pad, grid)
-    sc_out = _hdiff(sc_pad, k_pad, grid) if scalars else None
 
     if dyn.kvdif > 0.0:
         ph_full = grid.phb + state["ph"]
@@ -134,18 +138,24 @@ def diffusion_tendencies(state, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         out["u"] = out["u"] + _vdiff(state["u"], dyn.kvdif, dz2)
         out["v"] = out["v"] + _vdiff(state["v"], dyn.kvdif, dz2)
         out["th"] = out["th"] + _vdiff(state["t"], dyn.kvdif, dz2)
-        if scalars:
-            sc_out = sc_out + _vdiff(sc, dyn.kvdif, dz2)
 
+    f = dyn.diff_6th_factor
     if dyn.diff_6th_opt:
-        f = dyn.diff_6th_factor
         out["u"] = out["u"] + _filter6(g["u"], f, dt)
         out["v"] = out["v"] + _filter6(g["v"], f, dt)
         out["th"] = out["th"] + _filter6(g["t"], f, dt)
-        if scalars:
+
+    for a, b in pass_slices(len(scalars), state["t"].numel()) if scalars else ():
+        sc = torch.stack([state[q] for q in scalars[a:b]])
+        sc_pad = hx.pad(sc, 3)
+        sc_out = _hdiff(sc_pad, k_pad, grid)
+        if dyn.kvdif > 0.0:
+            sc_out = sc_out + _vdiff(sc, dyn.kvdif, dz2)
+        if dyn.diff_6th_opt:
             sc_out = sc_out + _filter6(sc_pad, f, dt)
-    for i, q in enumerate(scalars):
-        out[q] = sc_out[i]
+        del sc, sc_pad
+        for i, q in enumerate(scalars[a:b]):
+            out[q] = sc_out[i]
     if dtke is not None:
         out["tke"] = out.get("tke", 0.0) + dtke
     return out

@@ -34,6 +34,10 @@ rank 0, which alone writes (the same bytes as a run on one block); the
 tslist points are recorded by the rank that owns them and gathered at the
 end of every `advance`.  `gather_state` brings the global state to rank 0.
 `step_times`, `phase_times` and `mean_step_time` are this rank's.
+
+`full_step` is the reference's one-call step (radiation, the physics, the
+dynamics, chemistry and the boundary forcing) for callers that drive the
+pieces without a `Simulation`.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from wrfchem_arc_interactions_tpu_torch.io import history as hio
 from wrfchem_arc_interactions_tpu_torch.io.auxinput import EmissionStream
 from wrfchem_arc_interactions_tpu_torch.models.fdda import apply_nudging
 from wrfchem_arc_interactions_tpu_torch.models.lateral_bc import make_specified_bc
+from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.parallel.sharded import (
     gather, halo_ops_for, place, place_fields,
 )
@@ -70,6 +75,36 @@ from wrfchem_arc_interactions_tpu_torch.utils.support import check_config
 
 # pending tslist values are brought to the host at least this often
 _TS_PENDING_MAX = 1024
+
+
+def full_step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
+              do_radiation: bool, do_chem: bool, time_s: float,
+              boundary=None, spec_bc=None) -> State:
+    """One complete model step in the reference's order: radiation (with
+    `do_radiation`), the pre-dynamics physics, the dynamics, the
+    post-dynamics physics, chemistry (with `do_chem`), then the Davies
+    specified/relaxation forcing toward `boundary` when boundary data and
+    its operator `spec_bc` are given.  As in the reference, radiation's sun
+    stands at UTC second `time_s` of the default julian day, and the chem
+    call's at the chem driver's defaults (0 s of that day).
+
+    `Simulation` runs the same pieces as separate steppers and, on a step
+    where both alarms ring, calls chemistry first: from 00 UTC of the
+    default julian day, where its calendar puts the sun where `full_step`
+    does, its `advance(1)` is the chem call followed by ``full_step(...,
+    do_radiation=True, do_chem=False)``."""
+    t_s = np.float32(time_s)
+    if do_radiation and (cfg.physics.ra_sw_physics.value != "none"
+                         or cfg.physics.ra_lw_physics.value != "none"):
+        state = radiation_driver(state, grid, cfg, t_s)
+    state, tend = pre_dynamics(state, grid, cfg, hx, dt, t_s)
+    state = dyn_step(state, grid, cfg, hx, dt, tend)
+    state = post_dynamics(state, grid, cfg, dt)
+    if do_chem and cfg.chem.chem_opt.value != "none":
+        state = chem_driver(state, grid, cfg, cfg.chem.chemdt_s)
+    if boundary is not None and spec_bc is not None:
+        state = spec_bc.apply(state, boundary, t_s, dt, hx=hx)
+    return state
 
 
 class Simulation:
