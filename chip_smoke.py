@@ -18,7 +18,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    boundary kinds, specified among them, flat and with a map factor, with
    rows of 1,000 cells in x tiles held bitwise; the ROS2 kernel against its
    plain version at config 4's 500,000 cells and at 4,133 cells), timed
-   with CUDA events, beside its bound, with each library's build flags;
+   with CUDA events, beside its bound, with each library's build flags
+   and, for the multi-tracer kernel, the launch plan of each grid
+   (`tracers_kernel.plan`: tile, blocks an SM, registers and spill bytes;
+   printed beside every time of that kernel below too);
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -161,14 +164,16 @@ Phases (each raises on failure, and the script then exits non-zero):
    UTC through `Simulation`: the case's build time, 2 warm-up steps and a
    20-step window (chem calls at steps 10 and 20, each in two blocks of
    rows) with the exact launches, the window's peak memory and config 4's
-   physical checks; one synchronised call of each executable with its
-   peak memory above what it finds; profiles of one main step and one
+   physical checks and the caching allocator's counters over it; one
+   synchronised call of each executable with its peak memory above what it
+   finds; profiles of one main step and one
    chem call (device time by kernel, busy share); the four kernels on the
    path's own inputs as the calls are made (the scalar advection and the
    multi-tracer kernel bitwise, the latter's plain version over slices of
    8 tracers; the Mie kernel within 3.2e-4; the ROS2 kernel bitwise, its
    plain version in passes of 2^20 cells), each timed alone beside its
-   bound; the chem and rad calls on an interior 100x100 window equal to
+   bound (the multi-tracer kernel's grids in x tiles of 8 x 100 cells);
+   the chem and rad calls on an interior 100x100 window equal to
    the block's on those columns bit for bit; a restart of the block
    written, read into a fresh `Simulation` and one step taken in each,
    bitwise in every field, with the file's size and both times.
@@ -759,9 +764,11 @@ def dycore_on_path(step, label, card=None, tracer_slice=None):
             nz, ny, nx = out.shape[1:]
             ms = _device_ms(lambda: tracers_kernel.advect_tracers(*args, **kw), calls=2,
                             trials=5, warmup=1)
-            bound = _tracers_bound(nt, nz, ny, nx, bool(kw.get("pd")))
+            msf = args[7].has_msf
+            bound = _tracers_bound(nt, nz, ny, nx, bool(kw.get("pd")), msf)
             timed[mode] = {"shape": [nt, nz, ny, nx], "ms": ms, "bound_ms": bound[0],
-                           "bound_by": bound[1]}
+                           "bound_by": bound[1],
+                           "plan": _tracers_plan(nt, nz, ny, nx, bool(kw.get("pd")), msf)}
 
     with _Checked(solve, {"advect_scalar_5_3": adv, "advect_tracers": tracers}):
         step()
@@ -777,11 +784,12 @@ def dycore_on_path(step, label, card=None, tracer_slice=None):
                   f"one main step (inputs, limiter: {sorted(shapes[name], key=str)}), max|d| "
                   f"= 0 (bitwise equal{sliced})")
     for mode, m in timed.items():
+        plan = f"; plan: {_plan_str(m['plan'])}" if "plan" in m else ""
         print(f"{'advect_scalar_5_3' if mode == 'advect_scalar_5_3' else 'advect_tracers'} "
               f"at {tuple(m['shape'])}{'' if mode == 'advect_scalar_5_3' else ', ' + mode} on "
               f"{label}'s own inputs, alone: {m['ms']:.4f} ms per call, bound "
               f"{m['bound_ms']:.4f} ms ({m.get('bound_by', 'bytes')}, "
-              f"{100.0 * m['bound_ms'] / m['ms']:.1f}% of it) [{card}]")
+              f"{100.0 * m['bound_ms'] / m['ms']:.1f}% of it){plan} [{card}]")
     torch.cuda.empty_cache()
     return {"calls": dict(seen), **timed}
 
@@ -923,6 +931,36 @@ def tracer_inputs(dev, grid, nt):
     return args, pt, float(q.abs().max())
 
 
+def _tracers_plan(nt, nz, ny, nx, pd, msf=False, seam=False) -> list:
+    """The multi-tracer kernel's plan of each grid of a call (`tracers_kernel.
+    plan`: tile, slots a thread, blocks, shared memory, blocks an SM by the
+    runtime's occupancy query, registers and local (spill) bytes a thread
+    from cudaFuncGetAttributes)."""
+    from wrfchem_arc_interactions_tpu_torch.ops import build, tracers_kernel
+    return tracers_kernel.plan(build.load("advect_tracers"), pd, nt, nz, ny, nx, msf=msf,
+                               seam=seam)
+
+
+def _plan_str(plans) -> str:
+    return "; ".join(
+        f"{p['grid']}: {'x tiles' if p['x_tiles'] else 'one tile over the row'} of "
+        f"{p['tile_rows']} x {p['tile_cells']} cells ({p['tiles_y']} x {p['tiles_x']} a "
+        f"tracer), {p['slots_per_thread']} slots a thread, {p['blocks']} blocks, "
+        f"{p['smem_bytes']} B shared, {p['resident']} blocks an SM, {p['registers']} "
+        f"registers, {p['local_bytes']} B local (spills)" for p in plans)
+
+
+def _without_plans(x):
+    """`x` without the multi-tracer kernel's launch plans: the kernels line
+    holds what this run measured and the bounds; each plan is printed
+    beside its time."""
+    if isinstance(x, dict):
+        return {k: _without_plans(v) for k, v in x.items() if k != "plan"}
+    if isinstance(x, list):
+        return [_without_plans(v) for v in x]
+    return x
+
+
 def kernel_tracers(dev, grid, nt):
     """One stage update of `nt` scalars at full width (config 3 advects 47,
     config 4 107, slice 6 219), without the limiter (stages 0-1) and with PD
@@ -956,13 +994,14 @@ def kernel_tracers(dev, grid, nt):
                               calls=1, trials=5, warmup=1)
         wall_ms = _wall_ms(lambda: tracers_kernel.advect_tracers(*args, **kw))
         bound = _tracers_bound(nt, nz, ny, nx, pd, msf)
+        plans = _tracers_plan(nt, nz, ny, nx, pd, msf)
         print(f"advect_tracers {label} at ({nt}, {nz}, {ny}, {nx}), pd={pd}, device time per "
               f"call: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]}, {100.0 * bound[0] / ms:.1f}% of it); host wall per "
-              f"synchronised call: kernel {wall_ms:.4f} ms")
+              f"synchronised call: kernel {wall_ms:.4f} ms; plan: {_plan_str(plans)}")
         modes["pd_clip" if pd else "no_limiter"] = {
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+            "bound_ms": bound[0], "bound_by": bound[1], "plan": plans}
     return modes
 
 
@@ -1085,9 +1124,8 @@ def kernel_ros2(dev, ncell, n_sub=2, dt_total=60.0):
 
 # (nz, ny, nx) that stress the multi-tracer kernel's ring of planes (fewer
 # levels than the ring holds), its tile (one row; rows that do not fill the
-# last tile) and its slots (rows narrower and wider than a warp; a row so
-# wide that a thread owns eight slots, not four); and rows wider than one
-# tile holds, which it splits into x tiles (held bitwise)
+# last tile) and its slots (rows narrower and wider than a warp); and rows
+# wider than one tile spans, which it splits into x tiles (held bitwise)
 TRACER_SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (50, 9, 13), (2, 4, 300),
                  (2, 4, 1000), (5, 17, 1000))
 WIDE_ROW = 1000
@@ -2586,14 +2624,17 @@ def kernel_tracers_seams(dev, card, nt=107):
                 flat_ms = _device_ms(lambda: tracers_kernel.advect_tracers(
                     *flat_args, pt=b["pt"], pd=True, clip=True), calls=10, trials=20)
                 bound = _tracers_bound(nt, nz, by, bx, True, g.has_msf)
+                plans = {"seam": _tracers_plan(nt, nz, by, bx, True, g.has_msf, seam=True),
+                         "flat": _tracers_plan(nt, nz, by, bx, True, g.has_msf)}
                 print(f"advect_tracers with the limiter at ({nt}, {nz}, {by}, {bx}), {label}: "
                       f"seam grids (x tiles, ring-padded phi/ww/m2 and r_hi) "
                       f"{seam_ms:.4f} ms, flat kernel on the same block (open sides) "
                       f"{flat_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); the ring "
-                      f"exchanges not included [{card}]")
+                      f"exchanges not included; seam plan: {_plan_str(plans['seam'])}; flat "
+                      f"plan: {_plan_str(plans['flat'])} [{card}]")
                 out_numbers[label] = {"seam_ms": seam_ms, "flat_ms": flat_ms,
                                       "bound_ms": bound[0], "bound_by": bound[1],
-                                      "bitwise_all_kinds": True}
+                                      "bitwise_all_kinds": True, "plan": plans}
             del ref, qp, rup, rvp, blocks, r_all, r_ring
             torch.cuda.empty_cache()
     return out_numbers
@@ -2956,6 +2997,17 @@ def config5_block_rank(rank, device, card):
     return config5_block_phase(torch.device(device), card)
 
 
+# the caching allocator's counters that a stall can come from: an
+# allocation that failed, freed the cached blocks (a device
+# synchronisation) and retried; the device allocations and frees
+ALLOCATOR_COUNTS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+                    "num_sync_all_streams")
+
+
+def _allocator_counts(before, after) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in ALLOCATOR_COUNTS}
+
+
 def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=WIDTH12):
     """Slice 12's main path: one card's block of BASELINE config 5, config
     4's package (`_cfg4`) at 500x500x60 from noon UTC through `Simulation`:
@@ -2998,11 +3050,13 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     sim.sync()
     warm_s = time.perf_counter() - t0
     _reset_counts()
+    alloc0 = torch.cuda.memory_stats(dev)
     t0 = time.perf_counter()
     sim.advance(steps)              # steps 2..21: chem at 10 and 20
     sim.sync()
     wall = time.perf_counter() - t0
     launches = _counts()
+    alloc = _allocator_counts(alloc0, torch.cuda.memory_stats(dev))
     peak_window = torch.cuda.max_memory_allocated(dev)
     peak_reserved = torch.cuda.max_memory_reserved(dev)
     n_chem = sum(1 for n in range(2, 2 + steps) if n % sim.chem_every == 0)
@@ -3038,6 +3092,7 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
           f"{held / 2**30:.3f} GiB held before it): " + ", ".join(
               f"{k} {v['ms']:.1f} ms, {v['peak_above_bytes'] / 2**30:.3f} GiB"
               for k, v in execs.items()))
+    print(f"{label}: the caching allocator over the window {alloc} [{card}]")
     main, chem = sim._stepper("main"), sim._stepper("chem")
     dev_main, n_main, rows_main = _profile(lambda: main(sim.state, sim.grid, t_now))
     dev_chem, n_chem_k, rows_chem = _profile(lambda: chem(sim.state, sim.grid, t_now))
@@ -3076,7 +3131,7 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
                "chem_row_blocks": blocks,
                "case_build_s": build_s, "window_steps": steps, "ms_step": ms_step,
                "peak_memory_bytes": peak_window, "peak_reserved_bytes": peak_reserved,
-               "executables": execs,
+               "executables": execs, "allocator_window": alloc,
                "held_bytes": held, "device_ms": {"main": dev_main, "chem": dev_chem},
                "kernels_per_call": {"main": n_main, "chem": n_chem_k}, "busy_pct": busy,
                "profile_main": [[t / 1e3, n, k[:90]] for t, n, k in rows_main[:12]],
@@ -3497,7 +3552,7 @@ def main(argv=None) -> int:
     print(json.dumps({"config5_block": numbers12}))
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": list(entries.values())}))
+    print(json.dumps({"kernels": [_without_plans(e) for e in entries.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

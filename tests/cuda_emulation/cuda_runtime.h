@@ -94,6 +94,20 @@ inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* device) { *device = 0; return 0; }
 // two "SMs", so that a persistent grid walks its grid-stride loop
 inline int cudaDeviceGetAttribute(int* value, int, int) { *value = 2; return 0; }
+// A kernel's registers and local bytes are the card's compiler's: none here.
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F> inline int cudaFuncGetAttributes(cudaFuncAttributes* attr, F) {
+  attr->numRegs = 0;
+  attr->localSizeBytes = 0;
+  return 0;
+}
+// Blocks an SM by threads and shared memory alone (an H100's 2,048 threads
+// and 228 KB, 1 KB of it kept per block): the stand-in knows no registers.
+template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads,
+                                                                            size_t bytes) {
+  *n = std::min(2048 / threads, (int)(233472 / (bytes + 1024)));
+  return 0;
+}
 
 // Runs `blocks` blocks of `threads` threads one after the other.  Shared
 // memory is filled with NaNs before each block, so that a read of a value

@@ -20,9 +20,11 @@ to its plain PyTorch version:
 - ``csrc/advect_tracers.cu`` at the small shapes that stress its tile, its
   rings of planes and its slots, and at rows wider than one tile (its x
   tiles), on every lateral boundary kind (specified too), with and without
-  the limiter, on a flat grid and with a map factor; and on the blocks of
-  process meshes, with seams on one to four sides and x tiles, against
-  the plain version on the whole domain;
+  the limiter, on a flat grid and with a map factor, and on the shapes
+  whose launch plans the test of its plans names (a 500-cell row at 16
+  rows, 100 and 50 cells); its plans themselves; and on the blocks of process meshes,
+  with seams on one to four sides and x tiles, against the plain version
+  on the whole domain;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
   substeps over a few blocks of its persistent grid.
 
@@ -32,8 +34,10 @@ to its plain PyTorch version:
 warp-coherent and edge inputs.
 
 What this cannot see: races (the host threads are few at a time), the
-card's alignment rules, and whether ``nvcc`` accepts the source.  Skipped
-where no host C++ compiler is installed.
+card's alignment rules, and whether ``nvcc`` accepts the source.
+Registers, spills and blocks an SM are the card's:
+the stand-in reports none, and blocks an SM by threads and shared memory
+alone.  Skipped where no host C++ compiler is installed.
 """
 
 import ctypes
@@ -102,8 +106,17 @@ def tracers_lib(tmp_path_factory):
     return lib
 
 
+# the shapes of `test_emulated_tracer_kernel_plans_cover_the_cases`: a
+# 500-cell row at 16 rows (one tile of two rows at eight slots a thread
+# before; x tiles now), a 100-cell row (one tile of eight rows, as before)
+# and a 50-cell row
+PLAN_CASES = ((2, 16, 500, "open", "open"), (2, 16, 500, "periodic", "symmetric"),
+              (2, 16, 100, "periodic", "periodic"), (3, 10, 50, "symmetric", "open"))
+
+
 @pytest.mark.parametrize("pd", [False, True])
-@pytest.mark.parametrize("case", _boundary_cases(), ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", _boundary_cases() + list(PLAN_CASES),
+                         ids=lambda c: "-".join(map(str, c)))
 def test_emulated_tracer_kernel_is_bitwise_its_plain_version(tracers_lib, case, pd):
     out, ref, q = _emulated_tracers(tracers_lib, case, pd, 7 + case[0])
     assert float((ref - q).abs().max()) > 1e-3            # the stage does something
@@ -124,7 +137,7 @@ def _projected(tg, seed):
 MSF_CASES = ((3, 9, 13, "specified", "specified"), (5, 17, 33, "periodic", "periodic"),
              (2, 5, 33, "symmetric", "specified"), (50, 9, 13, "specified", "open"),
              (1, 1, 13, "periodic", "open"), (2, 3, 1000, "specified", "specified"),
-             (2, 4, 1000, "periodic", "periodic"))
+             (2, 4, 1000, "periodic", "periodic"), (2, 16, 500, "specified", "periodic"))
 
 
 @pytest.mark.parametrize("pd", [False, True])
@@ -132,7 +145,7 @@ MSF_CASES = ((3, 9, 13, "specified", "specified"), (5, 17, 33, "periodic", "peri
 def test_emulated_tracer_kernel_with_map_factor_is_bitwise(tracers_lib, case, pd):
     """With m2 = msft^2 on every divergence and outflow sum, bitwise as the
     plain version on a projected grid, including rows of 1,000 cells in x
-    tiles (wider than the 469 and 511 cells one tile holds)."""
+    tiles (wider than the 255 cells one tile spans)."""
     out, ref, q = _emulated_tracers(tracers_lib, case, pd, 31 + case[2], msf=True)
     assert float((ref - q).abs().max()) > 1e-3
     assert torch.equal(out, ref)
@@ -165,15 +178,16 @@ def _emulated_tracers(lib, case, pd, seed, msf=False):
 
 
 def test_emulated_tracer_kernel_refuses_a_row_too_wide(tracers_lib):
-    """No row is too wide any more: the one-tile grid spans 469 cells with
-    the limiter and 511 without (at two rows; 572 and 681 at one), and a row of
-    1,200 cells, which the kernel refused before it split rows into x
-    tiles, runs bitwise as its plain version."""
+    """No row is too wide any more: the one-tile grid spans 255 cells at two
+    rows and 340 at one, with the limiter and without (four slots a thread;
+    until eight slots a thread went, 469 and 511 at two rows, 572 and 681 at
+    one), and a row of 1,200 cells, which the kernel refused before it
+    split rows into x tiles, runs bitwise as its plain version."""
     tracers_lib.advect_tracers_widest_row.restype = ctypes.c_int
     widest = {(pd, ny): tracers_lib.advect_tracers_widest_row(pd, ny)
               for pd in (0, 1) for ny in (1, 2, 100)}
-    assert widest == {(0, 1): 681, (0, 2): 511, (0, 100): 511,
-                      (1, 1): 572, (1, 2): 469, (1, 100): 469}
+    assert widest == {(0, 1): 340, (0, 2): 255, (0, 100): 255,
+                      (1, 1): 340, (1, 2): 255, (1, 100): 255}
     out, ref, _ = _emulated_tracers(tracers_lib, (1, 2, 1200, "periodic", "open"), True, 5)
     assert torch.equal(out, ref)
 
@@ -457,6 +471,54 @@ def test_emulated_scalar_kernel_plans_cover_the_cases(adv_lib):
     assert adv_kernel.plan(adv_lib, 50, 100, 100, 132) == {
         "rows_per_thread": 2, "warps_per_plane": 163, "blocks_per_plane": 41, "kc": 4,
         "chunks": 13, "threads": 128, "blocks": 533}
+
+
+def test_emulated_tracer_kernel_plans_cover_the_cases(tracers_lib):
+    """The launch plan takes one tile over the row where one spans it
+    (`widest_row`), else x tiles.  At config 5's block (107 scalars,
+    500x500x60) and at 16 rows of 500 cells, which one tile spanned before
+    only at two rows and eight slots a thread (one block an SM by its 142 KB
+    of shared memory, a q plane of 8 rows for 2 rows of cells): x tiles of
+    eight rows and 100 cells, three blocks an SM without the limiter, two
+    with it.  At 100 and 50 cells one tile over the row, as before.  Each
+    grid's slots cover its tile, its tiles the block, and the blocks an SM
+    fit its shared memory; the seam grids take the x tiles' sizing."""
+    tracers_lib.advect_tracers_widest_row.restype = ctypes.c_int
+
+    def grids(pd, shape, seam=False):
+        return tracers_kernel.plan(tracers_lib, pd, *shape, seam=seam)
+
+    for shape in ((107, 60, 500, 500), (2, 2, 16, 500)):
+        nt, nz, ny, nx = shape
+        for pd in (False, True):
+            for p in grids(pd, shape):
+                assert p["x_tiles"] and (p["tile_rows"], p["tile_cells"]) == (8, 100)
+                assert p["slots_per_thread"] == 4 and p["resident"] == (2 if pd else 3)
+                assert p["blocks"] == nt * -(-ny // 8) * 5
+        assert grids(True, shape, seam=True) == grids(True, shape)
+    for shape, rows in (((107, 50, 100, 100), 8), ((2, 3, 10, 50), 5), ((107, 50, 50, 50), 8)):
+        for pd in (False, True):
+            for p in grids(pd, shape):
+                assert not p["x_tiles"] and p["slots_per_thread"] == 4
+                assert (p["tile_rows"], p["tile_cells"], p["tiles_x"]) == (rows, shape[3], 1)
+    for shape in ((107, 50, 100, 100), (107, 60, 500, 500), (2, 2, 16, 500), (2, 3, 10, 50),
+                  (107, 50, 50, 50), (2, 2, 4, 300), (2, 2, 3, 1000), (2, 2, 4, 255)):
+        nt, nz, ny, nx = shape
+        for pd in (False, True):
+            widest = tracers_lib.advect_tracers_widest_row(int(pd), ny)
+            for p in grids(pd, shape):
+                assert p["x_tiles"] == (nx > widest)
+                halo = 2 if p["x_tiles"] else 1
+                assert (p["tile_rows"] + 2) * (p["tile_cells"] + halo) <= \
+                    256 * p["slots_per_thread"]
+                assert p["tiles_y"] * p["tile_rows"] >= ny > (p["tiles_y"] - 1) * p["tile_rows"]
+                assert p["tiles_x"] * p["tile_cells"] >= nx
+                assert p["x_tiles"] or p["tiles_x"] == 1
+                assert p["blocks"] == nt * p["tiles_y"] * p["tiles_x"]
+                assert 1 <= p["resident"] and p["resident"] * (p["smem_bytes"] + 1024) <= 233472
+    # the seam grids: x tiles where the flat grids take one tile
+    for p in grids(True, (107, 50, 50, 50), seam=True):
+        assert p["x_tiles"] and (p["tile_rows"], p["tile_cells"], p["tiles_x"]) == (8, 50, 1)
 
 
 def _emulated_scalar(adv_lib, shape, msf):

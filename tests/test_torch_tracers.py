@@ -45,8 +45,8 @@ NT, NZ, NY, NX = 2, 6, 8, 12
 DTS = 6.0
 # (nz, ny, nx) that stress the CUDA kernel's ring of planes (fewer levels than
 # the ring holds), its tile (one row; rows that do not fill the last tile)
-# and its slots (rows narrower and wider than a warp; a row so wide that a
-# thread owns eight slots, not four)
+# and its slots (rows narrower and wider than a warp; a row wider than one
+# tile spans, in x tiles)
 SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (2, 4, 300))
 
 

@@ -42,21 +42,31 @@
 //
 // Design: shared-memory planes, fixed slots and a march in z.
 //
-// - A block owns a tile of rows over the whole x row (or an x tile of a
-//   wide row, below) for one tracer and marches from k = 0 to nz - 1.  Its slots are the (ty + 2) x (nx + 1)
-//   points of the tile with a one-row halo and one more column; slot
-//   (rr, i) is cell (j0 + rr - 1, i), its west x face and its south y face.
-//   Each thread owns four slots (eight for a wide row) for the whole march,
+// - A block owns a tile of rows over the whole x row (or an x tile of the
+//   row, below) for one tracer and marches from k = 0 to nz - 1.  Its slots
+//   are the (ty + 2) x (nx + 1) points of the tile with a one-row halo and
+//   one more column; slot (rr, i) is cell (j0 + rr - 1, i), its west x face
+//   and its south y face.  Each thread owns four slots for the whole march,
 //   so what a slot is (its flags) and where it reads (two offsets) is
 //   worked out once, and no lane idles on a ragged x tile.  A thread
 //   computes all of its slots alike, without branches on what a slot is, so
 //   that the compiler interleaves their work; only the stores look at the
 //   flags.  The tile height divides ny evenly and shrinks for rows too wide
 //   for the shared memory.
-// - A row wider than one tile can hold at two rows (`widest_row_of`: 469
-//   cells in the limiter's grids, 511 without) is split into x tiles, each
-//   at most as wide as four slots a thread cover at its height (254 cells
-//   at 2 rows, 100 at 8) and as tall as the shared memory allows.  A tile of tw
+// - The launch plan (`make_plan`): one tile over the row where a tile of
+//   two rows spans it (`widest_row_of`: 255 cells in every grid), else x
+//   tiles.  Eight slots a thread, which let one tile span rows up to 511
+//   cells, are gone: at config 5's per-card block (500 x 500) the grid
+//   without the limiter took one tile of 2 rows that way, 142 KB of shared
+//   memory, one block an SM, q planes of 8 rows for 2 rows of cells and 472
+//   bytes of spills (90.7 ms a call on the H100); x tiles of 8 x 100 cells,
+//   three blocks an SM, take a quarter of that.  A cost model over the
+//   halo's share, the q rows fetched per row of cells and the blocks an SM
+//   picked the same grids as this rule on every shape a path runs (rows of
+//   45, 50, 90, 100, 500 and 1,000 cells), so the rule stands in its place.
+// - An x tile is at most as wide as four slots a thread cover at its height
+//   (254 cells at 2 rows, 100 at 8) and as tall as the shared memory
+//   allows.  A tile of tw
 //   cells carries the 3-cell x halo in its q, ru and rv planes, and its
 //   slots are (ty + 2) x (tw + 2): one more column on each side, cells
 //   i0 - 1 and i0 + tw, whose factors the faces at the tile's edges read.
@@ -68,13 +78,14 @@
 //   shared memory at a pitch congruent to the padded row's modulo 4 floats:
 //   the one shift of the plane then aligns every row's 16-byte pieces.
 // - Planes come by asynchronous copy (cp.async), started at least one
-//   iteration before their use, into rings in shared memory: q (the tile's
-//   rows and three halo rows are one contiguous piece of the padded array,
-//   so a plane is a linear copy), ru and rv (likewise), and r_hi.  A plane
-//   lands shifted by up to 3 floats, so that source and destination are
-//   16-byte aligned alike and the copy goes in 16-byte pieces.  The few
-//   per-cell values (ww, phi, pt) are loaded into registers a phase before
-//   their use.  A level costs two barriers.
+//   iteration before their use, into rings in shared memory: q (with one
+//   tile over the row, the tile's rows and three halo rows are one
+//   contiguous piece of the padded array, so a plane is a linear copy), ru
+//   and rv (likewise), and r_hi.  A plane lands shifted by up to 3 floats,
+//   so that source and destination are 16-byte aligned alike and the copy
+//   goes in 16-byte pieces.  The few per-cell values (ww, phi, pt) are
+//   loaded into registers a phase before their use.  A level costs two
+//   barriers.
 // - Each face flux is computed once per grid: x and y faces of the level
 //   into shared memory, the z face k+1 by the thread that owns the cell,
 //   kept in a register as the lower face of level k+1.
@@ -108,9 +119,23 @@
 //   (6.7 MB at 100x100x50, they stay in L2; the block's shared memory
 //   doubles and a block less fits an SM: slower), and a ninth warp that only
 //   fetches planes (the compute warps' registers shrink: slower with the
-//   limiter).  What bounds the kernel now is instruction rate: ~190 float
-//   instructions per slot and level with the limiter (no fused multiply-add,
-//   so that it rounds like its plain version), and the loads around them.
+//   limiter).  A producer warp that gives its registers to the compute
+//   warps (setmaxnreg) was not built: with two blocks of 8 + 1 warps an SM
+//   and the producer at 24 registers, a compute thread can get at most 120
+//   (a multiple of 8 under 65,536 / 2 less the producers', over 512
+//   threads), under the 128 the limiter's grids use now.  Bulk copies
+//   (cp.async.bulk, counted on an mbarrier per ring slot; no tensor map: the
+//   padded row's pitch, (nx + 6) x 4 bytes, is not a multiple of 16): of one
+//   tile's contiguous planes, up to 7% slower than every thread's cp.async
+//   at 100x100x50 and 50x50x50; of an x tile's rows, one thread a row, 3.4%
+//   faster in the limited pair at config 5's block (81.6 -> 78.8 ms, H100),
+//   about 3 ms of a main step that varies by more between runs, for an
+//   mbarrier protocol the CPU emulation cannot check.  The grids with no
+//   plane copied at all (a wrong result, timed) are 14% under the limited
+//   pair there (70.4 ms): no copy path can give it more than that.  What
+//   bounds the kernel is instruction rate: ~190 float instructions per slot
+//   and level with the limiter (no fused multiply-add, so that it rounds
+//   like its plain version), and the loads from shared memory around them.
 //
 // Seams (a block of a process mesh).  Each side of the block has an edge
 // code: the domain's boundary kind, or SEAM where a neighbouring block
@@ -131,9 +156,10 @@
 // cost tile height on every launch, seam or not; (a) leaves the one-block
 // instances as they were and costs an exchange of an nt x nz x perimeter
 // ring per limited stage (and the rings of phi_old, ww and m2).  The RING
-// instances always run on the grid of x tiles, whose slots carry a halo
-// column on each side, and read phi, ww, m2 and the ring of r_hi at a
-// held slot's own place in the (ny+2) x (nx+2) layout.
+// instances always run on the grid of x tiles (the plan's x-tile sizing),
+// whose slots carry a halo column on each side, and read phi, ww, m2 and
+// the ring of r_hi at a held slot's own place in the (ny+2) x (nx+2)
+// layout.
 //
 // Arithmetic: every operation follows the plain PyTorch version
 // (ops/tracers_kernel.py::advect_tracers_reference) in order, and the
@@ -145,6 +171,7 @@ namespace {
 
 constexpr int PAD = 3;
 constexpr int THREADS = 256;
+constexpr int CPT = 4;                    // slots a thread
 constexpr int TY_MAX = 8;                 // most rows of a tile
 constexpr int SMEM_SM = 233472;           // an SM's shared memory
 constexpr int SMEM_RESERVED = 1024;       // what the system keeps of it per resident block
@@ -368,7 +395,7 @@ enum : int {
 // plane, and LIMITED reads r_hi from a.r_ring, laid out alike; every cell
 // that holds data (the block's, and its halo ring beyond a periodic side or
 // a seam) reads them at its own place in the ring layout.
-template <int MODE, int CPT, bool XT, bool MSF, bool RING>
+template <int MODE, bool XT, bool MSF, bool RING>
 __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, int clip) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool PD = MODE != PLAIN;
@@ -647,7 +674,7 @@ __global__ void __launch_bounds__(THREADS, resident(MODE)) stage_kernel(Args a, 
 // tile over the row (xt false) the row must fit; with x tiles (xt) each is
 // as wide as the slots allow at that height, its width in *tx.  Returns the
 // tile height, or 0 where none fits.
-template <int MODE, int CPT>
+template <int MODE>
 int tile_rows(const Args& a, bool xt, int* tx) {
   const int least = a.ny > 1 ? 2 : 1;
   const int most = (a.ny + TY_MAX - 1) / TY_MAX;
@@ -670,9 +697,9 @@ int tile_rows(const Args& a, bool xt, int* tx) {
   return 0;
 }
 
-// The widest x row that one tile of the mode's grid spans, with four or
-// eight slots a thread (whether a row fits only narrows as it widens).  Not
-// on the launch path: `launch_mode` tries the one-tile grid itself.
+// The widest x row that one tile of the mode's grid spans (whether a row
+// fits only narrows as it widens): up to it the plan takes one tile, past
+// it x tiles.
 template <int MODE>
 int widest_row_of(int ny) {
   Args a{};
@@ -680,59 +707,104 @@ int widest_row_of(int ny) {
   int lo = 0, hi = 4096;                   // fits at lo (or lo = 0), not at hi
   while (hi - lo > 1) {
     a.nx = (lo + hi) / 2;
-    const bool fits =
-        tile_rows<MODE, 4>(a, false, nullptr) > 0 || tile_rows<MODE, 8>(a, false, nullptr) > 0;
-    (fits ? lo : hi) = a.nx;
+    (tile_rows<MODE>(a, false, nullptr) > 0 ? lo : hi) = a.nx;
   }
   return lo;
 }
 
-template <int MODE, int CPT, bool XT, bool MSF, bool RING>
-int launch_msf(Args a, int ty, int clip, cudaStream_t s) {
-  const cudaError_t attr = cudaFuncSetAttribute(stage_kernel<MODE, CPT, XT, MSF, RING>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                SMEM_MAX);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  a.ty = ty;
-  a.tiles = (a.ny + ty - 1) / ty;
-  const size_t blocks = (size_t)a.tiles * a.xtiles * a.nt;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t bytes =
-      (size_t)layout(MODE, ty, a.nx, CPT * THREADS, XT, a.tx, a.pitch).total * sizeof(float);
-  stage_kernel<MODE, CPT, XT, MSF, RING><<<(unsigned)blocks, THREADS, bytes, s>>>(a, clip);
-  return static_cast<int>(cudaGetLastError());
-}
+struct Plan {
+  bool xt;              // x tiles, else one tile over the row
+  int ty, tx;           // rows of a tile, cells of its rows
+  int tiles, xtiles;    // tiles over y and over x
+  int pitch, ulog;      // x tiles: row pitch of a plane, log2 of copy units a row
+  int bytes;            // dynamic shared memory of a block
+};
 
-template <int MODE, int CPT, bool XT, bool RING = false>
-int launch(Args a, int ty, int clip, cudaStream_t s) {
-  return a.m2 != nullptr ? launch_msf<MODE, CPT, XT, true, RING>(a, ty, clip, s)
-                         : launch_msf<MODE, CPT, XT, false, RING>(a, ty, clip, s);
-}
-
-// The grid of x tiles of four slots a thread (tiles of even width over nx).
+// The launch plan of the mode's grid: one tile over the row where one
+// spans it, else x tiles of even width (RING: the seam grids, x tiles
+// only); ty = 0 where no grid fits.
 template <int MODE, bool RING>
-int launch_xt(Args a, int clip, cudaStream_t s) {
-  int tx = 0;
-  const int ty = tile_rows<MODE, 4>(a, true, &tx);
-  if (ty == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  a.xtiles = (a.nx + tx - 1) / tx;
-  a.tx = (a.nx + a.xtiles - 1) / a.xtiles;
-  const int px = a.nx + 2 * PAD;
-  a.pitch = a.tx + 2 * PAD + ((px - a.tx - 2 * PAD) & 3);   // = px modulo 4
-  for (a.ulog = 0; (1 << a.ulog) < ((a.tx + 2 * PAD) >> 2) + 6; ++a.ulog) {
+Plan make_plan(const Args& a) {
+  Plan p{};
+  p.tx = a.nx;
+  p.ty = RING ? 0 : tile_rows<MODE>(a, false, nullptr);
+  p.xt = p.ty == 0;
+  if (p.xt) p.ty = tile_rows<MODE>(a, true, &p.tx);
+  if (p.ty == 0) return p;
+  p.tiles = (a.ny + p.ty - 1) / p.ty;
+  p.xtiles = (a.nx + p.tx - 1) / p.tx;
+  p.tx = (a.nx + p.xtiles - 1) / p.xtiles;
+  if (p.xt) {
+    const int px = a.nx + 2 * PAD;
+    p.pitch = p.tx + 2 * PAD + ((px - p.tx - 2 * PAD) & 3);   // = px modulo 4
+    while ((1 << p.ulog) < ((p.tx + 2 * PAD) >> 2) + 6) ++p.ulog;
   }
-  return launch<MODE, 4, true, RING>(a, ty, clip, s);
+  p.bytes = layout(MODE, p.ty, a.nx, CPT * THREADS, p.xt, p.tx, p.pitch).total *
+            (int)sizeof(float);
+  return p;
 }
 
-// Four slots a thread where a tile of two rows spans the row that way, else
-// eight; a row that no tile spans takes x tiles of four slots a thread.
-template <int MODE>
-int launch_mode(Args a, int clip, cudaStream_t s) {
-  int ty = tile_rows<MODE, 4>(a, false, nullptr);
-  if (ty > 0) return launch<MODE, 4, false>(a, ty, clip, s);
-  ty = tile_rows<MODE, 8>(a, false, nullptr);
-  if (ty > 0) return launch<MODE, 8, false>(a, ty, clip, s);
-  return launch_xt<MODE, false>(a, clip, s);
+// Calls f with the kernel instance that runs plan p (msf: with a map
+// factor) and returns what f returns.
+template <int MODE, bool RING, class F>
+int with_kernel(const Plan& p, bool msf, F f) {
+  if (p.xt)
+    return msf ? f(stage_kernel<MODE, true, true, RING>) : f(stage_kernel<MODE, true, false, RING>);
+  if constexpr (!RING)
+    return msf ? f(stage_kernel<MODE, false, true, false>)
+               : f(stage_kernel<MODE, false, false, false>);
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// Launches the mode's grid by its plan.
+template <int MODE, bool RING = false>
+int launch(Args a, int clip, cudaStream_t s) {
+  const Plan p = make_plan<MODE, RING>(a);
+  if (p.ty == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t blocks = (size_t)p.tiles * p.xtiles * a.nt;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  a.ty = p.ty;
+  a.tiles = p.tiles;
+  a.tx = p.tx;
+  a.xtiles = p.xtiles;
+  a.pitch = p.pitch;
+  a.ulog = p.ulog;
+  return with_kernel<MODE, RING>(p, a.m2 != nullptr, [&](auto kernel) {
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<(unsigned)blocks, THREADS, (size_t)p.bytes, s>>>(a, clip);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The plan of the mode's grid into out[11] (advect_tracers_plan).
+template <int MODE, bool RING>
+int report_plan(const Args& a, int* out) {
+  const Plan p = make_plan<MODE, RING>(a);
+  if (p.ty == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  out[0] = p.xt;
+  out[1] = CPT;
+  out[2] = p.ty;
+  out[3] = p.tx;
+  out[4] = p.tiles;
+  out[5] = p.xtiles;
+  out[6] = p.tiles * p.xtiles * a.nt;
+  out[7] = p.bytes;
+  return with_kernel<MODE, RING>(p, a.m2 != nullptr, [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[8], kernel, THREADS,
+                                                        (size_t)p.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[9] = attr.numRegs;
+    out[10] = (int)attr.localSizeBytes;
+    return 0;
+  });
 }
 
 Args make_args(const float* q, const float* phi, const float* pt, const float* ru,
@@ -781,9 +853,9 @@ extern "C" int advect_tracers(const float* q, const float* phi, const float* pt,
   const Args a = make_args(q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, m2, r_hi, nullptr,
                            out, nt, nz, ny, nx, rdx, rdy, dts, edge);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!pd) return launch_mode<PLAIN>(a, clip, s);
-  const int err = launch_mode<FACTOR>(a, clip, s);
-  return err != 0 ? err : launch_mode<LIMITED>(a, clip, s);
+  if (!pd) return launch<PLAIN>(a, clip, s);
+  const int err = launch<FACTOR>(a, clip, s);
+  return err != 0 ? err : launch<LIMITED>(a, clip, s);
 }
 
 // One grid of the limited update on a block of a process mesh (RING):
@@ -807,14 +879,43 @@ extern "C" int advect_tracers_seam(int grid, const float* q, const float* phi,
   const Args a = make_args(q, phi, pt, ru, rv, ww, mu_full, mu_new, rdnw, m2, r_hi, r_ring,
                            out, nt, nz, ny, nx, rdx, rdy, dts, edge);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (grid == FACTOR) return launch_xt<FACTOR, true>(a, clip, s);
-  if (grid == LIMITED) return launch_xt<LIMITED, true>(a, clip, s);
+  if (grid == FACTOR) return launch<FACTOR, true>(a, clip, s);
+  if (grid == LIMITED) return launch<LIMITED, true>(a, clip, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The widest x row (cells) that every grid of a call spans with one tile
-// at ny rows; a wider row is split into x tiles.
+// The widest x row (cells) that one tile spans at ny rows in every grid of
+// a call: up to it the plan takes one tile over the row, past it x tiles.
 extern "C" int advect_tracers_widest_row(int pd, int ny) {
   return pd ? min(widest_row_of<FACTOR>(ny), widest_row_of<LIMITED>(ny))
             : widest_row_of<PLAIN>(ny);
+}
+
+// The plan of one grid of `advect_tracers` (seam 0) or of
+// `advect_tracers_seam` (seam 1) at (nt, nz, ny, nx), with a map factor if
+// msf: `grid` 0 (without the limiter), 1 (FACTOR) or 2 (LIMITED).  Into
+// plan[11]: {x tiles (1) or one tile over the row (0), slots a thread, rows
+// of a tile, cells of a tile's rows, tiles over y, tiles over x, blocks,
+// dynamic shared memory of a block (bytes), blocks an SM by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers a thread and
+// local (spill) bytes a thread by cudaFuncGetAttributes}.  Returns 0, or
+// the CUDA error (cudaErrorInvalidConfiguration where the grid does not
+// fit).
+extern "C" int advect_tracers_plan(int grid, int seam, int nt, int nz, int ny, int nx, int msf,
+                                   int* plan) {
+  if (nt < 1 || nz < 1 || ny < 1 || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int edge[4] = {OPEN, OPEN, OPEN, OPEN};
+  static const float m2 = 1.0f;          // a map factor's pointer picks the instance
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, msf ? &m2 : nullptr, nullptr, nullptr, nullptr, nt,
+                           nz, ny, nx, 0.0f, 0.0f, 0.0f, edge);
+  if (seam) {
+    if (grid == FACTOR) return report_plan<FACTOR, true>(a, plan);
+    if (grid == LIMITED) return report_plan<LIMITED, true>(a, plan);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (grid == PLAIN) return report_plan<PLAIN, false>(a, plan);
+  if (grid == FACTOR) return report_plan<FACTOR, false>(a, plan);
+  if (grid == LIMITED) return report_plan<LIMITED, false>(a, plan);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

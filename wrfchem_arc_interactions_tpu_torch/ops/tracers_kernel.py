@@ -33,11 +33,11 @@ r_hi, the second reads it and writes the update.  Without the limiter one
 grid (`GRIDS_PLAIN`) does it all.  The source's header states the design in
 full.
 
-A row wider than one tile can hold at two rows (`widest_row`: 469 cells
-with the limiter, 511 without) is split into x tiles, each with the 3-cell
-x halo in its planes and one more column of factors on each side; at or
-below that width the grid is the one-tile grid.  Rows of any width run,
-bitwise as at one tile.
+Each grid runs on one of two launch plans (`plan` reports it): one tile
+over the x row where one spans it (`widest_row`: 255 cells at two rows),
+else x tiles, each with the 3-cell x halo in its planes and one more
+column of factors on each side.  Rows of any width run, bitwise on either
+plan.
 
 On a block of a process mesh (`parallel.mesh`) each side of the block
 has an edge code: the lateral boundary's kind, or a SEAM where a
@@ -240,9 +240,39 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
 advect_tracers.launches = 0
 
 
+_PLAN_FIELDS = ("x_tiles", "slots_per_thread", "tile_rows", "tile_cells", "tiles_y", "tiles_x",
+                "blocks", "smem_bytes", "resident", "registers", "local_bytes")
+
+
+def plan(lib: ctypes.CDLL, pd: bool, nt: int, nz: int, ny: int, nx: int, msf: bool = False,
+         seam: bool = False) -> list:
+    """The grids the kernel library `lib` launches for one call at (nt, nz,
+    ny, nx): one without the limiter, FACTOR's and LIMITED's with it; of
+    `advect_tracers_seam` if `seam`.  Each a dict: x tiles or one tile over
+    the row, slots a thread, rows and cells of a tile, tiles over y and x,
+    blocks, shared memory of a block, blocks an SM by the runtime's
+    occupancy query, registers and local (spill) bytes a thread by
+    cudaFuncGetAttributes."""
+    fn = lib.advect_tracers_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = []
+    for g in (FACTOR, LIMITED) if pd or seam else (0,):
+        buf = (ctypes.c_int * len(_PLAN_FIELDS))()
+        err = fn(g, int(seam), nt, nz, ny, nx, int(msf), buf)
+        if err != 0:
+            raise RuntimeError(f"advect_tracers_plan failed: cudaError {err}")
+        p = dict(zip(_PLAN_FIELDS, buf))
+        p["grid"] = {0: "plain", FACTOR: "factor", LIMITED: "limited"}[g]
+        p["x_tiles"] = bool(p["x_tiles"])
+        out.append(p)
+    return out
+
+
 def widest_row(pd: bool, ny: int = 2) -> int:
-    """The widest x row (cells) that every grid of a call spans with one
-    tile at `ny` rows (CUDA library); a wider row takes x tiles."""
+    """The widest x row (cells) that one tile spans at `ny` rows in every
+    grid of a call (CUDA library): up to it the plan takes the one-tile
+    grid, past it x tiles."""
     fn = build.load("advect_tracers").advect_tracers_widest_row
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
