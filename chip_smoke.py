@@ -16,7 +16,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    and config 4's 107 scalars, and at 107 with slice 9's m2, bitwise, and
    at small shapes that stress its tile and its ring of planes on all four
    boundary kinds, specified among them, flat and with a map factor, with
-   rows of 1,000 cells in x tiles held bitwise; the ROS2 kernel against its
+   rows of 1,000 cells in x tiles and every limited call held bitwise
+   (the limited grid also on tiles of several rows whose 2-cell ring
+   crosses a periodic edge); the ROS2 kernel against its
    plain version at config 4's 500,000 cells and at 4,133 cells), timed
    with CUDA events, beside its bound, with each library's build flags
    and, for the multi-tracer kernel, the launch plan of each grid
@@ -128,7 +130,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    chem calls), gathered on rank 0 and held to one block's run of the same
    22 steps on the card within tests/test_parallel.py's full-step
    tolerances; per rank the launches of each kernel per main step and per
-   chem call (equal to one block's), the exchanges and bytes per main step
+   chem call (one block's, and one more multi-tracer grid a step: a block
+   with a seam takes the limited stage in two), the exchanges and bytes per main step
    and ms/step (four ranks share one card, strips through the host: not a
    scaling number); then on every rank, on its own inputs at its block's
    shapes, every scalar-advection and multi-tracer call of one main step
@@ -146,7 +149,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    one-block nest's run of the same steps on the card, every field (each
    difference printed; tests/test_parallel.py's full-step tolerances
    fail it); per rank and domain the launches of each kernel per parent
-   step and per chem call (equal to one block's), the halo's exchanges and
+   step and per chem call (one block's, and a multi-tracer grid more a
+   step at the seams), the halo's exchanges and
    bytes and the nest's all-gathers and their bytes per parent step, and
    ms per parent step beside the one-block nest's; then on every rank, on
    the child's 45x45 block, `on_path10`'s checks (one child step's
@@ -172,7 +176,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    multi-tracer kernel bitwise, the latter's plain version over slices of
    8 tracers; the Mie kernel within 3.2e-4; the ROS2 kernel bitwise, its
    plain version in passes of 2^20 cells), each timed alone beside its
-   bound (the multi-tracer kernel's grids in x tiles of 8 x 100 cells);
+   bound with its launch plan (the multi-tracer kernel's grid without
+   the limiter in x tiles of 8 x 100 cells, its limited grid in x tiles of
+   28 x 28); the main step's device time, ms/step, busy share and peak
+   memory above the state;
    the chem and rad calls on an interior 100x100 window equal to
    the block's on those columns bit for bit; a restart of the block
    written, read into a fresh `Simulation` and one step taken in each,
@@ -945,7 +952,7 @@ def _plan_str(plans) -> str:
     return "; ".join(
         f"{p['grid']}: {'x tiles' if p['x_tiles'] else 'one tile over the row'} of "
         f"{p['tile_rows']} x {p['tile_cells']} cells ({p['tiles_y']} x {p['tiles_x']} a "
-        f"tracer), {p['slots_per_thread']} slots a thread, {p['blocks']} blocks, "
+        f"tracer), {p['threads']} threads x {p['slots_per_thread']} slots, {p['blocks']} blocks, "
         f"{p['smem_bytes']} B shared, {p['resident']} blocks an SM, {p['registers']} "
         f"registers, {p['local_bytes']} B local (spills)" for p in plans)
 
@@ -1009,8 +1016,8 @@ def tracers_entry(modes, others):
     """The multi-tracer kernel's entry.  A main path calls it twice without
     the limiter and once with it per step: the entry carries the mean per
     call over that mix at the main path's (slice 9's) 107 scalars with the
-    map factor (its "launches" count grids: one per call without the
-    limiter, two with it); `modes` holds both settings there, and `others`
+    map factor (its "launches" count grids: one per call, with the limiter
+    or without); `modes` holds both settings there, and `others`
     ({key: modes}) those of the other paths' shapes."""
     a, b = modes["no_limiter"], modes["pd_clip"]
     mean = {k: (2.0 * a[k] + b[k]) / 3.0 for k in ("ms", "plain_ms", "bound_ms")}
@@ -1124,10 +1131,12 @@ def kernel_ros2(dev, ncell, n_sub=2, dt_total=60.0):
 
 # (nz, ny, nx) that stress the multi-tracer kernel's ring of planes (fewer
 # levels than the ring holds), its tile (one row; rows that do not fill the
-# last tile) and its slots (rows narrower and wider than a warp); and rows
-# wider than one tile spans, which it splits into x tiles (held bitwise)
+# last tile) and its slots (rows narrower and wider than a warp); rows
+# wider than one tile spans, which it splits into x tiles (held bitwise);
+# and the limited grid's tiles of several rows, over the row and in x
+# tiles, whose 2-cell rings cross the periodic edges
 TRACER_SHAPES = ((1, 1, 13), (2, 5, 33), (3, 9, 13), (5, 17, 33), (50, 9, 13), (2, 4, 300),
-                 (2, 4, 1000), (5, 17, 1000))
+                 (2, 4, 1000), (5, 17, 1000), (2, 40, 300), (3, 70, 70))
 WIDE_ROW = 1000
 
 
@@ -1181,18 +1190,19 @@ def _tracers_boundaries(dev, grid, nt=3):
             torch.cuda.synchronize()
             err = float((out - ref).abs().max() / q.abs().max())
             worst = max(worst, err)
-            if not err <= 1e-5 or ((nx >= WIDE_ROW or msf) and not torch.equal(out, ref)):
+            if not err <= 1e-5 or ((nx >= WIDE_ROW or msf or pd) and not torch.equal(out, ref)):
                 raise RuntimeError(f"advect_tracers at (nt, nz, ny, nx) = {(nt, nz, ny, nx)}, "
                                    f"x {bc_x}, y {bc_y}, limiter {pd}, map factor {msf} "
                                    f"disagrees with its plain version: {err}")
             bitwise += int(torch.equal(out, ref))
     print(f"advect_tracers (kernel) vs plain with and without the limiter at {len(cases)} "
-          f"shapes and boundary kinds (nz 1-50, ny 1-17, nx 13, 33, 300 and {WIDE_ROW}, the "
-          f"last in x tiles; open, symmetric, periodic, specified), flat and with a map "
-          f"factor: max|d|/max|q| = {worst:.3g} (limit 1e-5; rows of {WIDE_ROW} and every "
-          f"call with a map factor bitwise), {bitwise} of {4 * len(cases)} calls bitwise "
-          f"equal; one tile spans {tracers_kernel.widest_row(False)} cells without the "
-          f"limiter, {tracers_kernel.widest_row(True)} with it")
+          f"shapes and boundary kinds (nz 1-50, ny 1-70, nx 13-{WIDE_ROW}, in one tile over "
+          f"the row and in x tiles; open, symmetric, periodic, specified), flat and with a "
+          f"map factor: max|d|/max|q| = {worst:.3g} (limit 1e-5; rows of {WIDE_ROW}, every "
+          f"call with a map factor and every limited call bitwise), {bitwise} of "
+          f"{4 * len(cases)} calls bitwise equal; at two rows one tile spans "
+          f"{tracers_kernel.widest_row(False)} cells without the limiter, and the limited "
+          f"grid takes one tile up to {tracers_kernel.widest_row(True)}")
 
 
 def _tracer_grids_per_step() -> int:
@@ -1813,7 +1823,7 @@ def slice6_phase(dev, card, steps=RAD_CHEM_EVERY):
         raise RuntimeError(f"slice 6: negative chem fields {neg}")
     n_chem = steps // sim.chem_every
     # theta: the single-scalar kernel on 3 stages; the 219 scalars: the
-    # multi-tracer kernel's 4 grids a step; each chem call launches the Mie
+    # multi-tracer kernel's 3 grids a step; each chem call launches the Mie
     # kernel once per bin (8) and the ROS2 kernel once
     want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
             "mie_cheb_eval": nbin * n_chem, "ros2_integrate": n_chem}
@@ -2450,6 +2460,7 @@ def slice10_phase(dev, card, steps=WINDOW10, shape=(100, 100, 50)):
     window's launches summed over the ranks, and the numbers."""
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
     from wrfchem_arc_interactions_tpu_torch.parallel import launch
     cfg = _cfg4(*shape)
     grid, state = ideal.make_case(cfg, "squall2d_x", device=dev, bubble_amp=3.0)
@@ -2491,12 +2502,15 @@ def slice10_phase(dev, card, steps=WINDOW10, shape=(100, 100, 50)):
     per_step = ("advect_scalar_5_3", "advect_tracers")
     per_chem = ("mie_cheb_eval", "ros2_integrate")
     chem_one = ranks[0]["chem_calls"]
+    # a block with a seam takes the limited stage in two grids
+    seam_grids = tracers_kernel.GRIDS_SEAM - tracers_kernel.GRIDS_LIMITED
     for r in ranks:
         c = r["launches"]
         for k in per_step:
-            if c[k] != one_launches[k]:
+            want = one_launches[k] + (seam_grids * steps if k == "advect_tracers" else 0)
+            if c[k] != want:
                 raise RuntimeError(f"slice 10 rank {r['rank']}: {k} {c[k]} launches, one "
-                                   f"block {one_launches[k]}")
+                                   f"block {one_launches[k]}, expected {want}")
         for k in per_chem:
             if c[k] != one_launches[k] or c[k] < 1:
                 raise RuntimeError(f"slice 10 rank {r['rank']}: {k} {c[k]} launches, one "
@@ -2782,6 +2796,7 @@ def slice11_phase(dev, card, steps=WINDOW11, shape=(100, 100, 50), spec=SPEC11):
     then on every rank `on_path10` on the child's block.  Returns the
     window's launches summed over the ranks and both domains, and the
     numbers."""
+    from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel
     from wrfchem_arc_interactions_tpu_torch.parallel import launch
     nest = _nest11(_cfg4(*shape), dev, spec)
     tally_one, chem_one, _, one_ms = _run11(nest, steps)
@@ -2841,13 +2856,18 @@ def slice11_phase(dev, card, steps=WINDOW11, shape=(100, 100, 50), spec=SPEC11):
         if not o["ros2_bitwise"]:
             raise RuntimeError(f"slice 11 child rank {r['rank']}: ros2_integrate not "
                                "bitwise on the child's inputs")
+    seam_grids = tracers_kernel.GRIDS_SEAM - tracers_kernel.GRIDS_LIMITED
     for r in ranks:
         for which, n_steps in (("parent", steps), ("child", ratio * steps)):
             c = r["launches"][which]
             for k in per_step + per_chem:
-                if c[k] != tally_one[which][k] or (k in per_chem and c[k] < 1):
+                # a block with a seam takes the limited stage in two grids
+                want = tally_one[which][k] + (seam_grids * n_steps if k == "advect_tracers"
+                                              else 0)
+                if c[k] != want or (k in per_chem and c[k] < 1):
                     raise RuntimeError(f"slice 11 rank {r['rank']} {which}: {k} {c[k]} "
-                                       f"launches, one block {tally_one[which][k]}")
+                                       f"launches, one block {tally_one[which][k]}, expected "
+                                       f"{want}")
             by, bx = r["blocks"][which]
             print(f"slice 11 rank {r['rank']} {which} {by}x{bx} block: per parent step "
                   + ", ".join(f"{k} {c[k] / steps:g}" for k in per_step)
@@ -3104,6 +3124,10 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     for what, rows in (("main step", rows_main), ("chem call", rows_chem)):
         for t_us, count, key in rows[:8]:
             print(f"  {what} {t_us / 1e3:9.3f} ms  {count:7d} x  {key[:90]}")
+    main_above_state = held + execs["main"]["peak_above_bytes"] - state_bytes
+    print(f"{label}, the main step: {dev_main:.3f} ms of device time, {ms_step:.3f} ms/step "
+          f"over the window, device busy {busy:.1f}%, peak {main_above_state / 2**30:.3f} GiB "
+          f"above the {state_bytes / 2**30:.3f} GiB state [{card}]")
     torch.cuda.empty_cache()
     dycore = dycore_on_path(lambda: main(sim.state, sim.grid, t_now), label, card,
                             tracer_slice=TRACER_SLICE12)
@@ -3132,7 +3156,8 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
                "case_build_s": build_s, "window_steps": steps, "ms_step": ms_step,
                "peak_memory_bytes": peak_window, "peak_reserved_bytes": peak_reserved,
                "executables": execs, "allocator_window": alloc,
-               "held_bytes": held, "device_ms": {"main": dev_main, "chem": dev_chem},
+               "held_bytes": held, "main_peak_above_state_bytes": main_above_state,
+               "device_ms": {"main": dev_main, "chem": dev_chem},
                "kernels_per_call": {"main": n_main, "chem": n_chem_k}, "busy_pct": busy,
                "profile_main": [[t / 1e3, n, k[:90]] for t, n, k in rows_main[:12]],
                "profile_chem": [[t / 1e3, n, k[:90]] for t, n, k in rows_chem[:12]],
@@ -3279,15 +3304,18 @@ def _per_call_us(rows, name):
 
 def _tracer_grids_us(rows) -> str:
     """Device time per launch of the multi-tracer kernel's grids, by the
-    mode in the kernel's name (0 without the limiter, 1 the r_hi grid, 2 the
-    limited update)."""
+    kernel's name: `stage_kernel` by its mode (0 without the limiter; at
+    seams 1 the r_hi grid, 2 the limited update), `limited_kernel` the
+    limited stage of one block."""
     import re
-    names = {"0": "no limiter", "1": "r_hi", "2": "limited update"}
+    names = {"0": "no limiter", "1": "seam r_hi", "2": "seam limited update",
+             "L": "limited stage"}
     parts = []
     for t, n, key in rows:
         m = re.search(r"stage_kernel<(?:\(\w+\))?(\d)", key)
-        if m:
-            parts.append((m.group(1), f"{names.get(m.group(1), m.group(1))} {t / n:.2f} us x {n}"))
+        mode = m.group(1) if m else "L" if "limited_kernel<" in key else None
+        if mode:
+            parts.append((mode, f"{names.get(mode, mode)} {t / n:.2f} us x {n}"))
     return ", ".join(p for _, p in sorted(parts)) or "not found in the profile"
 
 

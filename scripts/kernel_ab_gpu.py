@@ -37,15 +37,16 @@ package's ``build/`` directory):
   3's 47 on the 100x100x50 squall grid, at 47 on a 1000x100x50 one, at
   107 on config 5's per-card block (500x500x60) and on slice 10's 50x50x50
   block, each without the limiter and with PD limiter and clip: the
-  parent's kernel (it must take rows of any width, as one with x tiles does) and this
-  tree's in turns, with this tree's variants (`TRACER_VARIANTS`: its
-  source without any plane copies, a floor whose result is not checked)
-  between them, beside the bound of chip_smoke.py's `_tracers_bound` and
-  this tree's plan of each grid (`tracers_kernel.plan`: tile, blocks an SM,
-  registers, spill bytes).  The plain version is held bitwise over slices
-  of 8 tracers, each checked call writing into outputs filled with NaN.  On the 50x50x50 block also the seam grids
-  (`advect_tracers_seam`, seams on all four sides, the limiter): the
-  parent's and this tree's in turns, their outputs bitwise equal.
+  parent's kernel (it must take rows of any width, as one with x tiles
+  does; with the limiter it may launch two grids, and gets an r_hi scratch
+  that this tree's one grid leaves unused) and this tree's in turns
+  (parent, this, this, parent), beside the bound of chip_smoke.py's
+  `_tracers_bound` and this tree's plan of each grid
+  (`tracers_kernel.plan`: tile, blocks an SM, registers, spill bytes).  The
+  plain version is held bitwise over slices of 8 tracers, each checked call
+  writing into outputs filled with NaN.  On the 50x50x50 block also the
+  seam grids (`advect_tracers_seam`, seams on all four sides, the limiter):
+  the parent's and this tree's in turns, their outputs bitwise equal.
 
 ``--kernels`` picks the sections (all three by default).
 
@@ -77,12 +78,6 @@ from wrfchem_arc_interactions_tpu_torch.ops import (  # noqa: E402
 
 CSRC = os.path.join("wrfchem_arc_interactions_tpu_torch", "csrc")
 
-# this tree's multi-tracer source edited: name -> (substitutions, checked);
-# an unchecked variant computes a wrong result on purpose (a floor).
-# tracers_nocopy: no plane of q, ru or rv is fetched, and no wait for one
-TRACER_VARIANTS = {
-    "tracers_nocopy": ([("    if (XT) copy_rows(", "    return;\n    if (XT) copy_rows(")], False),
-}
 # (nx, ny, nz, scalar counts) of the multi-tracer section
 TRACER_SHAPES = ((100, 100, 50, (219, 107, 47)), (1000, 100, 50, (47,)), (500, 500, 60, (107,)),
                  (50, 50, 50, (107,)))
@@ -146,7 +141,7 @@ def sass_counts(so_path: str):
             fn = m.group(1)
             counts[fn] = {}
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
         if m and fn:
             counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
     return {fn: dict(sorted(c.items(), key=lambda kv: -kv[1]), total=sum(c.values()))
@@ -231,7 +226,6 @@ def tracers_ab(dev, libs, parent, card):
     """The multi-tracer section (see the module docstring): a list of rows."""
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     rows = []
-    variants = [k for k in TRACER_VARIANTS if k in libs]
     for nx, ny, nz, counts in TRACER_SHAPES:
         grid, _ = ideal.make_case(cs._cfg3(nx=nx, ny=ny, nz=nz, rad_chem=False), "squall2d_x",
                                   device=dev, bubble_amp=3.0)
@@ -240,7 +234,7 @@ def tracers_ab(dev, libs, parent, card):
             out = torch.empty((nt, nz, ny, nx), device=dev)
             for pd in (False, True):
                 r_hi = torch.empty_like(out) if pd else None
-                keys = (["parent_tracers"] if parent else []) + ["tracers"] + variants
+                keys = (["parent_tracers"] if parent else []) + ["tracers"]
                 calls = {k: tracers_call(libs[k], args, pt, pd, out, r_hi) for k in keys}
                 ref = torch.empty_like(out)
                 for a in range(0, nt, TRACER_SLICE):
@@ -260,7 +254,7 @@ def tracers_ab(dev, libs, parent, card):
                     torch.cuda.synchronize()
                     equal = bool(torch.equal(out, ref))
                     row[f"{k}_bitwise"] = equal
-                    if not equal and TRACER_VARIANTS.get(k, (None, True))[1]:
+                    if not equal:
                         raise RuntimeError(f"{k} at nt={nt}, shape {(nz, ny, nx)}, pd={pd}: "
                                            f"max|d| {float((out - ref).abs().max())}, not "
                                            "bitwise")
@@ -386,17 +380,6 @@ def main(argv=None) -> int:
     names = {"adv": "advect_scalar_5_3", "mie": "mie_cheb_eval", "tracers": "advect_tracers"}
     build.register_generated("ab_floors", FLOORS_SRC)
     names["floors"] = "ab_floors"
-    if "tracers" in sections:
-        with open(build._source("advect_tracers")) as f:
-            text = f.read()
-        for key, (subs, _) in TRACER_VARIANTS.items():
-            src = text
-            for old, new in subs:
-                if old not in src:
-                    raise RuntimeError(f"{key}: {old!r} not in csrc/advect_tracers.cu")
-                src = src.replace(old, new, 1)
-            build.register_generated(f"ab_{key}", src)
-            names[key] = f"ab_{key}"
     if args.parent:
         for key, src in (("parent_adv", "advect_scalar_5_3.cu"), ("parent_mie", "mie_cheb_eval.cu"),
                          ("parent_tracers", "advect_tracers.cu")):
@@ -418,7 +401,7 @@ def main(argv=None) -> int:
     for key, counts in result["sass"].items():
         print(f"SASS {key}: {counts}")
     # the multi-tracer instances: instructions in all (their listings are long)
-    for key in ("tracers", "parent_tracers", *TRACER_VARIANTS):
+    for key in ("tracers", "parent_tracers"):
         if key in names:
             counts = sass_counts(build.lib_path(names[key])) or {}
             result["sass"][key] = {fn: c["total"] for fn, c in counts.items()}

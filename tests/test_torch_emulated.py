@@ -22,9 +22,12 @@ to its plain PyTorch version:
   tiles), on every lateral boundary kind (specified too), with and without
   the limiter, on a flat grid and with a map factor, and on the shapes
   whose launch plans the test of its plans names (a 500-cell row at 16
-  rows, 100 and 50 cells); its plans themselves; and on the blocks of process meshes,
-  with seams on one to four sides and x tiles, against the plain version
-  on the whole domain;
+  rows, 100 and 50 cells); the limited grid also on tiles of several rows
+  and x tiles whose 2-cell ring crosses a periodic edge (and its fourth
+  ring of q, which the wrapped cells give), with and without a tendency
+  stack and the clip; its plans themselves; and on the blocks of process
+  meshes, with seams on one to four sides and x tiles, against the plain
+  version on the whole domain;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
   substeps over a few blocks of its persistent grid.
 
@@ -112,10 +115,18 @@ def tracers_lib(tmp_path_factory):
 # and a 50-cell row
 PLAN_CASES = ((2, 16, 500, "open", "open"), (2, 16, 500, "periodic", "symmetric"),
               (2, 16, 100, "periodic", "periodic"), (3, 10, 50, "symmetric", "open"))
+# the limited grid's tiles of several rows: x tiles (2 x 8 of 20 x 38 cells;
+# 5 x 2 of 12 x 60) and one tile over the row (2 of 12 and 11 rows; 7 of
+# 10), whose 2-cell rings cross periodic edges in x, y and both, or meet
+# every other kind; a sixth element drops the tendency stack (no_pt) or the
+# clip (no_clip)
+RING_CASES = ((2, 40, 300, "periodic", "periodic"), (2, 60, 120, "symmetric", "specified", "no_pt"),
+              (3, 23, 45, "open", "symmetric", "no_clip"), (3, 70, 70, "specified", "periodic"),
+              (2, 40, 300, "open", "periodic", "no_pt"))
 
 
 @pytest.mark.parametrize("pd", [False, True])
-@pytest.mark.parametrize("case", _boundary_cases() + list(PLAN_CASES),
+@pytest.mark.parametrize("case", _boundary_cases() + list(PLAN_CASES) + list(RING_CASES),
                          ids=lambda c: "-".join(map(str, c)))
 def test_emulated_tracer_kernel_is_bitwise_its_plain_version(tracers_lib, case, pd):
     out, ref, q = _emulated_tracers(tracers_lib, case, pd, 7 + case[0])
@@ -137,7 +148,8 @@ def _projected(tg, seed):
 MSF_CASES = ((3, 9, 13, "specified", "specified"), (5, 17, 33, "periodic", "periodic"),
              (2, 5, 33, "symmetric", "specified"), (50, 9, 13, "specified", "open"),
              (1, 1, 13, "periodic", "open"), (2, 3, 1000, "specified", "specified"),
-             (2, 4, 1000, "periodic", "periodic"), (2, 16, 500, "specified", "periodic"))
+             (2, 4, 1000, "periodic", "periodic"), (2, 16, 500, "specified", "periodic"),
+             (2, 40, 300, "periodic", "periodic"), (3, 70, 70, "symmetric", "periodic"))
 
 
 @pytest.mark.parametrize("pd", [False, True])
@@ -153,41 +165,49 @@ def test_emulated_tracer_kernel_with_map_factor_is_bitwise(tracers_lib, case, pd
 
 def _emulated_tracers(lib, case, pd, seed, msf=False):
     """(kernel output, plain output, stage input) of the emulated kernel on
-    seeded inputs at case (nz, ny, nx, bc_x, bc_y), on a projected grid with
-    `msf`."""
-    nz, ny, nx, bc_x, bc_y = case
+    seeded inputs at case (nz, ny, nx, bc_x, bc_y[, "no_pt" or "no_clip"]),
+    on a projected grid with `msf`; the clip is on with the limiter unless
+    the case drops it.  The limited grid gets no r_hi scratch."""
+    nz, ny, nx, bc_x, bc_y = case[:5]
+    pt_on, clip = "no_pt" not in case[5:], pd and "no_clip" not in case[5:]
     _, tg = _grids(nz, ny, nx)
     if msf:
         tg = _projected(tg, seed)
     f = {k: _t(v) for k, v in _inputs(tg, seed=seed).items()}
+    pt = f["pt"] if pt_on else None
     hx = HaloOps(bc_x=BCKind(bc_x), bc_y=BCKind(bc_y))
     q_pad, ru, rv = (hx.pad(f[k], 3).contiguous() for k in ("q", "ru", "rv"))
     ref = tracers_kernel.advect_tracers_reference(
         q_pad, f["phi"], ru, rv, f["ww"], f["mu_full"], f["mu_new"], tg, hx, 6.0,
-        pt=f["pt"], pd=pd, clip=pd)
-    out, r_hi = torch.full_like(ref, float("nan")), torch.full_like(ref, float("nan"))
+        pt=pt, pd=pd, clip=clip)
+    out = torch.full_like(ref, float("nan"))
     m2 = tracers_kernel.map_factor_sq(tg)
     err = lib.advect_tracers(
-        q_pad.data_ptr(), f["phi"].data_ptr(), f["pt"].data_ptr(), ru.data_ptr(),
-        rv.data_ptr(), f["ww"].data_ptr(), f["mu_full"].data_ptr(), f["mu_new"].data_ptr(),
-        tg.rdnw.data_ptr(), None if m2 is None else m2.data_ptr(), r_hi.data_ptr(),
-        out.data_ptr(), *ref.shape, float(tg.rdx),
-        float(tg.rdy), 6.0, int(pd), int(pd), *tracers_kernel.edge_codes(hx), None)
+        q_pad.data_ptr(), f["phi"].data_ptr(), None if pt is None else pt.data_ptr(),
+        ru.data_ptr(), rv.data_ptr(), f["ww"].data_ptr(), f["mu_full"].data_ptr(),
+        f["mu_new"].data_ptr(), tg.rdnw.data_ptr(), None if m2 is None else m2.data_ptr(),
+        None, out.data_ptr(), *ref.shape, float(tg.rdx),
+        float(tg.rdy), 6.0, int(pd), int(clip), *tracers_kernel.edge_codes(hx), None)
     assert err == 0
+    if pd and not clip:
+        assert float(ref.min()) < 0.0              # the clip would act
     return out, ref, f["q"]
 
 
 def test_emulated_tracer_kernel_refuses_a_row_too_wide(tracers_lib):
-    """No row is too wide any more: the one-tile grid spans 255 cells at two
-    rows and 340 at one, with the limiter and without (four slots a thread;
-    until eight slots a thread went, 469 and 511 at two rows, 572 and 681 at
-    one), and a row of 1,200 cells, which the kernel refused before it
-    split rows into x tiles, runs bitwise as its plain version."""
+    """No row is too wide any more: without the limiter one tile spans 255
+    cells at two rows and 340 at one (four slots a thread; until eight slots
+    a thread went, 469 and 511 at two rows, 572 and 681 at one); the
+    limited grid, whose slots carry a 2-cell ring, takes one tile up to 170
+    cells at two rows and 203 at one, and at 100 rows up to 8 (a row of 9
+    takes x tiles of 100 x 5 cells, 500 a block, over one tile of 50 x 9);
+    and a row of 1,200 cells, which the kernel refused before it split rows
+    into x tiles, runs bitwise as its plain version."""
     tracers_lib.advect_tracers_widest_row.restype = ctypes.c_int
     widest = {(pd, ny): tracers_lib.advect_tracers_widest_row(pd, ny)
               for pd in (0, 1) for ny in (1, 2, 100)}
     assert widest == {(0, 1): 340, (0, 2): 255, (0, 100): 255,
-                      (1, 1): 340, (1, 2): 255, (1, 100): 255}
+                      (1, 1): 203, (1, 2): 170, (1, 100): 8}
     out, ref, _ = _emulated_tracers(tracers_lib, (1, 2, 1200, "periodic", "open"), True, 5)
     assert torch.equal(out, ref)
 
@@ -474,43 +494,54 @@ def test_emulated_scalar_kernel_plans_cover_the_cases(adv_lib):
 
 
 def test_emulated_tracer_kernel_plans_cover_the_cases(tracers_lib):
-    """The launch plan takes one tile over the row where one spans it
-    (`widest_row`), else x tiles.  At config 5's block (107 scalars,
-    500x500x60) and at 16 rows of 500 cells, which one tile spanned before
-    only at two rows and eight slots a thread (one block an SM by its 142 KB
-    of shared memory, a q plane of 8 rows for 2 rows of cells): x tiles of
-    eight rows and 100 cells, three blocks an SM without the limiter, two
-    with it.  At 100 and 50 cells one tile over the row, as before.  Each
-    grid's slots cover its tile, its tiles the block, and the blocks an SM
-    fit its shared memory; the seam grids take the x tiles' sizing."""
+    """Without the limiter the launch plan takes one tile over the row where
+    one spans it (`widest_row`), else x tiles: at config 5's block (107
+    scalars, 500x500x60) and at 16 rows of 500 cells x tiles of eight rows
+    and 100 cells, three blocks an SM; at 100 and 50 cells one tile over
+    the row.  The limited grid's slots are its tile with a 2-cell ring (one
+    tile over the row needs no x ring), and its plan is the tile that holds
+    the most cells at two blocks an SM: x tiles of 28 x 28 at config 5's
+    block, of 20 x 34 at 100x100 (680 cells; one tile over the row, 6 x 100),
+    one tile over the row at 50 cells (13 rows).  Each grid's slots cover
+    its tile, its tiles the block, and the blocks an SM fit its shared
+    memory; the seam grids take the x tiles' sizing without the limiter's."""
     tracers_lib.advect_tracers_widest_row.restype = ctypes.c_int
 
     def grids(pd, shape, seam=False):
         return tracers_kernel.plan(tracers_lib, pd, *shape, seam=seam)
 
+    def tile(p):
+        return p["x_tiles"], p["tile_rows"], p["tile_cells"], p["tiles_y"], p["tiles_x"]
+
     for shape in ((107, 60, 500, 500), (2, 2, 16, 500)):
         nt, nz, ny, nx = shape
-        for pd in (False, True):
-            for p in grids(pd, shape):
-                assert p["x_tiles"] and (p["tile_rows"], p["tile_cells"]) == (8, 100)
-                assert p["slots_per_thread"] == 4 and p["resident"] == (2 if pd else 3)
-                assert p["blocks"] == nt * -(-ny // 8) * 5
-        assert grids(True, shape, seam=True) == grids(True, shape)
+        (p,) = grids(False, shape)
+        assert tile(p)[:3] == (True, 8, 100) and p["resident"] == 3
+        assert p["blocks"] == nt * -(-ny // 8) * 5
+        for p in grids(True, shape, seam=True):
+            assert tile(p)[:3] == (True, 8, 100) and p["resident"] == 2
+    assert [tile(p) for p in grids(True, (107, 60, 500, 500))] == [(True, 28, 28, 18, 18)]
+    assert [tile(p) for p in grids(True, (2, 2, 16, 500))] == [(True, 16, 46, 1, 11)]
     for shape, rows in (((107, 50, 100, 100), 8), ((2, 3, 10, 50), 5), ((107, 50, 50, 50), 8)):
-        for pd in (False, True):
-            for p in grids(pd, shape):
-                assert not p["x_tiles"] and p["slots_per_thread"] == 4
-                assert (p["tile_rows"], p["tile_cells"], p["tiles_x"]) == (rows, shape[3], 1)
+        (p,) = grids(False, shape)
+        assert not p["x_tiles"]
+        assert (p["tile_rows"], p["tile_cells"], p["tiles_x"]) == (rows, shape[3], 1)
+    assert [tile(p) for p in grids(True, (107, 50, 100, 100))] == [(True, 20, 34, 5, 3)]
+    assert [tile(p) for p in grids(True, (2, 3, 10, 50))] == [(False, 10, 50, 1, 1)]
+    assert [tile(p) for p in grids(True, (107, 50, 50, 50))] == [(False, 13, 50, 4, 1)]
     for shape in ((107, 50, 100, 100), (107, 60, 500, 500), (2, 2, 16, 500), (2, 3, 10, 50),
-                  (107, 50, 50, 50), (2, 2, 4, 300), (2, 2, 3, 1000), (2, 2, 4, 255)):
+                  (107, 50, 50, 50), (2, 2, 4, 300), (2, 2, 3, 1000), (2, 2, 4, 255),
+                  (2, 2, 40, 300), (2, 3, 70, 70)):
         nt, nz, ny, nx = shape
+        widest = tracers_lib.advect_tracers_widest_row(0, ny)
         for pd in (False, True):
-            widest = tracers_lib.advect_tracers_widest_row(int(pd), ny)
             for p in grids(pd, shape):
-                assert p["x_tiles"] == (nx > widest)
-                halo = 2 if p["x_tiles"] else 1
-                assert (p["tile_rows"] + 2) * (p["tile_cells"] + halo) <= \
-                    256 * p["slots_per_thread"]
+                ring = 2 if pd else 1
+                halo = 2 * ring if p["x_tiles"] else 1
+                assert pd or p["x_tiles"] == (nx > widest)
+                assert (p["tile_rows"] + 2 * ring) * (p["tile_cells"] + halo) <= \
+                    p["threads"] * p["slots_per_thread"]
+                assert (p["threads"], p["slots_per_thread"]) == ((512, 2) if pd else (256, 4))
                 assert p["tiles_y"] * p["tile_rows"] >= ny > (p["tiles_y"] - 1) * p["tile_rows"]
                 assert p["tiles_x"] * p["tile_cells"] >= nx
                 assert p["x_tiles"] or p["tiles_x"] == 1

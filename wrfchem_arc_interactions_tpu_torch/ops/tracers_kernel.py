@@ -24,20 +24,25 @@ The kernel (``csrc/advect_tracers.cu``) is bound by memory on paper (~0.39 GB
 per call at nt = 47 and 100x100x50, 0.12 ms at 3.35 TB/s); what costs time
 on the card is the instructions around the arithmetic.  So a block owns a
 tile of rows over the x row (or an x tile of it) of one tracer and marches
-in z: planes of
-q, ru, rv (and r_hi) come by asynchronous copy into rings in shared memory,
-each thread owns a few fixed slots of the tile, and each face flux is
-computed once.  The limiter takes two grids (`GRIDS_LIMITED`): both form the
-low-order factor r_lo on the chip, the first writes the antidiffusive factor
-r_hi, the second reads it and writes the update.  Without the limiter one
-grid (`GRIDS_PLAIN`) does it all.  The source's header states the design in
-full.
+in z: planes of q, ru and rv come by asynchronous copy into rings in shared
+memory, each thread owns a few fixed slots of the tile, and each face flux
+is computed once.  A call is one grid (`GRIDS_PLAIN`, `GRIDS_LIMITED`), but
+the limited stage on a block with a seam (`GRIDS_SEAM`, below).
+With the limiter the grid's slots carry a 2-cell ring around the tile: in
+one march it forms the low-order factor r_lo on the tile and the ring, the
+low-order and antidiffusive fluxes and the antidiffusive factor r_hi on the
+tile and its 1-ring, and the limited update of the tile, a level behind the
+factors; no factor leaves the chip, which is what the TPU kernel does with
+its halos of 4.  The 4th cell past a periodic edge, which the ring's
+fluxes read and the stack's pad of 3 does not hold, comes from the wrapped
+cell.  The source's header states the design in full.
 
 Each grid runs on one of two launch plans (`plan` reports it): one tile
-over the x row where one spans it (`widest_row`: 255 cells at two rows),
-else x tiles, each with the 3-cell x halo in its planes and one more
-column of factors on each side.  Rows of any width run, bitwise on either
-plan.
+over the x row, or x tiles, each with the 3-cell x halo in its planes and
+one more column of factors on each side (two with the limiter).  Without
+the limiter one tile where one spans the row (`widest_row`: 255 cells at
+two rows); with it the tile that holds the most cells.  Rows of any width
+run, bitwise on either plan.
 
 On a block of a process mesh (`parallel.mesh`) each side of the block
 has an edge code: the lateral boundary's kind, or a SEAM where a
@@ -53,13 +58,11 @@ m2 with their exchanged one-cell ring, so that grid FACTOR forms r_lo on
 the seam rings from the neighbours' true values, as the neighbour itself
 does; grid FACTOR writes r_hi, the wrapper exchanges its one-cell ring,
 and grid LIMITED reads that ring.  Both grids run on the grid of x tiles,
-whose slots carry a halo column on each side.  The other route (the TPU
-kernel's, halos of 4 and r_hi formed on the seam ring in grid FACTOR)
-needs no exchange between the grids but a wider tile plane in a shared
-memory that the limiter's grids already fill; this one costs one
-exchange of an nt x nz x perimeter ring per limited stage (and the rings
-of phi_old, ww and m2), and keeps the kernel's arithmetic as it was, so
-that it stays bitwise equal to its plain version.
+whose slots carry a halo column on each side.  The one-block grid's route
+(r_hi formed on the ring) would need the neighbour's q 4 cells past the
+seam, a wider halo exchange on every stage; this one costs one exchange
+of an nt x nz x perimeter ring per limited stage (and the rings of
+phi_old, ww and m2).
 
 `advect_tracers` launches the kernel for CUDA tensors and runs
 `advect_tracers_reference` for CPU tensors; it never falls back from one to
@@ -81,7 +84,8 @@ from wrfchem_arc_interactions_tpu_torch.ops.stencil import PAD
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 
 GRIDS_PLAIN = 1          # grids of one call without the limiter
-GRIDS_LIMITED = 2        # ... with it: the r_hi grid and the update grid
+GRIDS_LIMITED = 1        # ... with it: the limited stage in one grid
+GRIDS_SEAM = 2           # ... with it on a block with a seam: FACTOR, then LIMITED
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _SEAM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
@@ -89,7 +93,8 @@ _SEAM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
 _BC_CODE = {BCKind.PERIODIC: 0, BCKind.OPEN: 1, BCKind.SYMMETRIC: 2,
             BCKind.SPECIFIED: 1}
 SEAM = 3                 # the edge code of a side where a neighbouring block lies
-FACTOR, LIMITED = 1, 2   # the limiter's two grids (advect_tracers_seam's `grid`)
+FACTOR, LIMITED = 1, 2   # the seam grids (advect_tracers_seam's `grid`); LIMITED is also
+                         # the one-block limited grid's code in advect_tracers_plan
 
 
 def edge_codes(hx: HaloOps) -> tuple:
@@ -224,16 +229,16 @@ def advect_tracers(q_pad, phi_old, ru_pad, rv_pad, ww, mu_full, mu_new,
             fn = lib.advect_tracers
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-            r_hi = torch.empty_like(out) if pd else None
             err = fn(q_pad.data_ptr(), phi_old.data_ptr(), ptr(pt), ru_pad.data_ptr(),
                      rv_pad.data_ptr(), ww.data_ptr(), mu_full.data_ptr(),
-                     mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(m2), ptr(r_hi),
+                     mu_new.data_ptr(), grid.rdnw.data_ptr(), ptr(m2), None,
                      out.data_ptr(),
                      nt, nz, ny, nx, float(grid.rdx), float(grid.rdy),
                      float(dts), int(pd), int(clip), *edges, stream)
     if err != 0:
         raise RuntimeError(f"advect_tracers launch failed: cudaError {err}")
-    advect_tracers.launches += GRIDS_LIMITED if pd else GRIDS_PLAIN
+    advect_tracers.launches += (GRIDS_SEAM if SEAM in edges else GRIDS_LIMITED) if pd \
+        else GRIDS_PLAIN
     return out
 
 
@@ -241,38 +246,40 @@ advect_tracers.launches = 0
 
 
 _PLAN_FIELDS = ("x_tiles", "slots_per_thread", "tile_rows", "tile_cells", "tiles_y", "tiles_x",
-                "blocks", "smem_bytes", "resident", "registers", "local_bytes")
+                "blocks", "smem_bytes", "resident", "registers", "local_bytes", "threads")
 
 
 def plan(lib: ctypes.CDLL, pd: bool, nt: int, nz: int, ny: int, nx: int, msf: bool = False,
          seam: bool = False) -> list:
     """The grids the kernel library `lib` launches for one call at (nt, nz,
-    ny, nx): one without the limiter, FACTOR's and LIMITED's with it; of
-    `advect_tracers_seam` if `seam`.  Each a dict: x tiles or one tile over
+    ny, nx): one without the limiter or one with it; FACTOR's and LIMITED's
+    of `advect_tracers_seam` if `seam`.  Each a dict: x tiles or one tile over
     the row, slots a thread, rows and cells of a tile, tiles over y and x,
     blocks, shared memory of a block, blocks an SM by the runtime's
     occupancy query, registers and local (spill) bytes a thread by
-    cudaFuncGetAttributes."""
+    cudaFuncGetAttributes, threads a block."""
     fn = lib.advect_tracers_plan
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = []
-    for g in (FACTOR, LIMITED) if pd or seam else (0,):
+    for g in (FACTOR, LIMITED) if seam else (LIMITED,) if pd else (0,):
         buf = (ctypes.c_int * len(_PLAN_FIELDS))()
         err = fn(g, int(seam), nt, nz, ny, nx, int(msf), buf)
         if err != 0:
             raise RuntimeError(f"advect_tracers_plan failed: cudaError {err}")
         p = dict(zip(_PLAN_FIELDS, buf))
-        p["grid"] = {0: "plain", FACTOR: "factor", LIMITED: "limited"}[g]
+        p["grid"] = ({FACTOR: "seam factor", LIMITED: "seam limited"}[g] if seam
+                     else "limited" if pd else "plain")
         p["x_tiles"] = bool(p["x_tiles"])
         out.append(p)
     return out
 
 
 def widest_row(pd: bool, ny: int = 2) -> int:
-    """The widest x row (cells) that one tile spans at `ny` rows in every
-    grid of a call (CUDA library): up to it the plan takes the one-tile
-    grid, past it x tiles."""
+    """The widest x row (cells) up to which the call's grid takes one tile
+    over the row at `ny` rows (CUDA library): without the limiter the widest
+    one tile spans, past it x tiles; with it the widest up to which every
+    row's tile of the most cells is one tile over the row."""
     fn = build.load("advect_tracers").advect_tracers_widest_row
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
