@@ -1,0 +1,8 @@
+"""advect_scalar_5_3's share of its roofline in the traced periods [%]
+(`port_bench.roofline.share`)."""
+
+from port_bench import roofline
+
+
+def read(records):
+    return roofline.share(records, "advect_scalar_5_3")

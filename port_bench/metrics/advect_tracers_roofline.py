@@ -1,0 +1,8 @@
+"""advect_tracers's share of its roofline in the traced periods [%]
+(`port_bench.roofline.share`)."""
+
+from port_bench import roofline
+
+
+def read(records):
+    return roofline.share(records, "advect_tracers")

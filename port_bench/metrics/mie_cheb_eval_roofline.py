@@ -1,0 +1,8 @@
+"""mie_cheb_eval's share of its roofline in the traced periods [%]
+(`port_bench.roofline.share`)."""
+
+from port_bench import roofline
+
+
+def read(records):
+    return roofline.share(records, "mie_cheb_eval")
