@@ -42,6 +42,7 @@ from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import (
 )
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
+from wrfchem_arc_interactions_tpu_torch.utils import trace
 from wrfchem_arc_interactions_tpu_torch.utils.device import pass_slices
 
 
@@ -88,24 +89,26 @@ def chem_driver(state: State, grid: Grid, cfg: Config, dt: float,
     ny, nx = grid.ny, grid.nx
     blocks = row_blocks(ny, nx, state["t"].shape[0])
     if len(blocks) == 1:
-        return _chem_columns(state, grid, cfg, dt, time_s, emissions, julian_day)
+        with trace.span("row_block"):
+            return _chem_columns(state, grid, cfg, dt, time_s, emissions, julian_day)
     out = dict(state)
     written: Dict[str, torch.Tensor] = {}
     for y0, y1 in blocks:
-        part_state = _rows(state, ny, nx, y0, y1)
-        part_grid = dataclasses.replace(grid, **_rows(
-            {k: getattr(grid, k) for k in TENSOR_FIELDS}, ny, nx, y0, y1))
-        part = _chem_columns(part_state, part_grid, cfg, dt, time_s,
-                             None if emissions is None else _rows(emissions, ny, nx, y0, y1),
-                             julian_day)
-        for k, v in part.items():
-            if v is part_state.get(k):
-                continue
-            if k not in written:
-                written[k] = torch.empty(v.shape[:-2] + (ny, nx), dtype=v.dtype,
-                                         device=v.device)
-            written[k][..., y0:y1, :] = v
-        del part, part_state, part_grid
+        with trace.span("row_block"):
+            part_state = _rows(state, ny, nx, y0, y1)
+            part_grid = dataclasses.replace(grid, **_rows(
+                {k: getattr(grid, k) for k in TENSOR_FIELDS}, ny, nx, y0, y1))
+            part = _chem_columns(part_state, part_grid, cfg, dt, time_s,
+                                 None if emissions is None else _rows(emissions, ny, nx, y0, y1),
+                                 julian_day)
+            for k, v in part.items():
+                if v is part_state.get(k):
+                    continue
+                if k not in written:
+                    written[k] = torch.empty(v.shape[:-2] + (ny, nx), dtype=v.dtype,
+                                             device=v.device)
+                written[k][..., y0:y1, :] = v
+            del part, part_state, part_grid
     out.update(written)
     return out
 
@@ -134,75 +137,83 @@ def _chem_columns(state: State, grid: Grid, cfg: Config, dt: float, time_s,
     # 1. dry deposition (resistance-in-series when the surface scheme
     # provides a friction velocity)
     if ch.drydep_opt:
-        chem = aux.dry_deposition(chem, dz[0], dt, gas.GAS_SPECIES,
-                                  ust=state.get("ust"), nbin=nbin)
+        with trace.span("drydep"):
+            chem = aux.dry_deposition(chem, dz[0], dt, gas.GAS_SPECIES,
+                                      ust=state.get("ust"), nbin=nbin)
 
     # 2. emissions (surface fluxes + Briggs plume rise for elevated `elev_*`
     # sources carrying a `heat_mw` entry)
     if ch.emiss_opt and emissions:
-        plume_w = None
-        if any(k.startswith("elev_") for k in emissions):
-            z_w = (ph_full - ph_full[0:1]) / c.G
-            u_mean = torch.sqrt(state["u"][0] ** 2 + state["v"][0] ** 2)
-            heat = emissions["heat_mw"] if "heat_mw" in emissions else torch.ones_like(u_mean)
-            plume_w = aux.plume_rise_profile(heat, u_mean, z_w)
-        chem = aux.apply_emissions(chem, emissions, rho_air[0], dz[0], dt,
-                                   plume_w=plume_w, rho=rho_air, dz=dz)
+        with trace.span("emissions"):
+            plume_w = None
+            if any(k.startswith("elev_") for k in emissions):
+                z_w = (ph_full - ph_full[0:1]) / c.G
+                u_mean = torch.sqrt(state["u"][0] ** 2 + state["v"][0] ** 2)
+                heat = emissions["heat_mw"] if "heat_mw" in emissions else torch.ones_like(u_mean)
+                plume_w = aux.plume_rise_profile(heat, u_mean, z_w)
+            chem = aux.apply_emissions(chem, emissions, rho_air[0], dz[0], dt,
+                                       plume_w=plume_w, rho=rho_air, dz=dz)
 
     # 3-4. photolysis profile (coupled to the computed cloud and aerosol
     # optical state — the chem->J ARC pathway) + gas-phase mechanism
     if ch.gaschem_onoff and _has_gas(cfg):
-        mu0 = cos_zenith(time_s, grid.xlat, grid.xlong, julian_day=julian_day)
-        if int(ch.phot_opt) >= 2:
-            # Fast-J-style spectral actinic flux: prognostic O3 absorption,
-            # Rayleigh, cloud LWP, and the chem-computed aerosol optical
-            # state per band -> per-reaction J scales
-            j_scale = photolysis.j_scales(
-                mu0, rho_air * c.G * dz, chem["chem_o3"] * 1e-6, qc * rho_air * dz,
-                state.get("tau_aer_sw"), state.get("ssa_aer_sw"),
-                state.get("asy_aer_sw"))
-        else:
-            # bulk gray attenuation; near-UV aerosol extinction band 10 =
-            # 0.345-0.442 um of the SW grid
-            tau_uv = state["tau_aer_sw"][10] if "tau_aer_sw" in state else None
-            j_scale = aux.photolysis_profile(mu0, qc, rho_air, dz, tau_uv)
-        # ppmv -> molec/cm3
-        m_air = diag.p_full / (1.380649e-23 * t_air) * 1e-6
-        shape = t_air.shape
-        conc = torch.stack([chem[f"chem_{s}"] * 1e-6 * m_air
-                            for s in gas.GAS_SPECIES]).reshape(gas.NS, -1)
-        k_rxn = gas.rate_constants(t_air, m_air, j_scale).reshape(gas.NR_RXN, -1)
-        if ch.gas_adaptive:
-            conc = gas.integrate_adaptive(conc, k_rxn, dt,
-                                          rtol=ch.gas_rtol, atol=ch.gas_atol)
-        else:
-            conc = gas.integrate(conc, k_rxn, dt)
-        conc = conc.reshape((gas.NS,) + shape)
-        for i, s in enumerate(gas.GAS_SPECIES):
-            chem[f"chem_{s}"] = conc[i] / m_air * 1e6
+        with trace.span("photolysis"):
+            mu0 = cos_zenith(time_s, grid.xlat, grid.xlong, julian_day=julian_day)
+            if int(ch.phot_opt) >= 2:
+                # Fast-J-style spectral actinic flux: prognostic O3 absorption,
+                # Rayleigh, cloud LWP, and the chem-computed aerosol optical
+                # state per band -> per-reaction J scales
+                j_scale = photolysis.j_scales(
+                    mu0, rho_air * c.G * dz, chem["chem_o3"] * 1e-6, qc * rho_air * dz,
+                    state.get("tau_aer_sw"), state.get("ssa_aer_sw"),
+                    state.get("asy_aer_sw"))
+            else:
+                # bulk gray attenuation; near-UV aerosol extinction band 10 =
+                # 0.345-0.442 um of the SW grid
+                tau_uv = state["tau_aer_sw"][10] if "tau_aer_sw" in state else None
+                j_scale = aux.photolysis_profile(mu0, qc, rho_air, dz, tau_uv)
+        with trace.span("gas"):
+            # ppmv -> molec/cm3
+            m_air = diag.p_full / (1.380649e-23 * t_air) * 1e-6
+            shape = t_air.shape
+            conc = torch.stack([chem[f"chem_{s}"] * 1e-6 * m_air
+                                for s in gas.GAS_SPECIES]).reshape(gas.NS, -1)
+            k_rxn = gas.rate_constants(t_air, m_air, j_scale).reshape(gas.NR_RXN, -1)
+            if ch.gas_adaptive:
+                conc = gas.integrate_adaptive(conc, k_rxn, dt,
+                                              rtol=ch.gas_rtol, atol=ch.gas_atol)
+            else:
+                conc = gas.integrate(conc, k_rxn, dt)
+            conc = conc.reshape((gas.NS,) + shape)
+            for i, s in enumerate(gas.GAS_SPECIES):
+                chem[f"chem_{s}"] = conc[i] / m_air * 1e6
 
     # 5. cloud chemistry: activation/resuspension bookkeeping of the
     # cloud-borne (_cw) phase, then aqueous S(IV)->S(VI) into the droplets
     if ch.cldchem_onoff:
-        w_c = 0.5 * (state["w"][:-1] + state["w"][1:])
-        chem = aux.cw_exchange(chem, qc, t_air, diag.p_full, rho_air, w_c, nbin)
-        chem = aux.cloud_chemistry(chem, qc, t_air, nbin, dt)
+        with trace.span("cloud"):
+            w_c = 0.5 * (state["w"][:-1] + state["w"][1:])
+            chem = aux.cw_exchange(chem, qc, t_air, diag.p_full, rho_air, w_c, nbin)
+            chem = aux.cloud_chemistry(chem, qc, t_air, nbin, dt)
 
     # 6. aerosol dynamics
     if ch.aerchem_onoff:
-        chem = nucleation.nucleate(chem, rho_air, rh, nbin, dt)
-        chem = thermo.partition(chem, t_air, rho_air, rh, nbin, dt)
-        chem = coag.coagulate(chem, rho_air, nbin, dt)
-        # moving-center bin remap: growth moves particles between sections
-        chem = movesect.remap(chem, nbin)
+        with trace.span("aerosol"):
+            chem = nucleation.nucleate(chem, rho_air, rh, nbin, dt)
+            chem = thermo.partition(chem, t_air, rho_air, rh, nbin, dt)
+            chem = coag.coagulate(chem, rho_air, nbin, dt)
+            # moving-center bin remap: growth moves particles between sections
+            chem = movesect.remap(chem, nbin)
 
     # 7. wet scavenging (size-resolved per bin: Greenfield-gap collection)
     if ch.wetscav_onoff:
-        chem = aux.wet_scavenging(chem, qr, dt, gas.GAS_SPECIES, nbin=nbin)
+        with trace.span("wetscav"):
+            chem = aux.wet_scavenging(chem, qr, dt, gas.GAS_SPECIES, nbin=nbin)
 
     # 8. aerosol optical properties (the ARC direct-effect bridge)
     out = dict(state)
     out.update(chem)
     if ch.aer_ra_feedback or "tau_aer_sw" in state:
-        out.update(optics.aerosol_optics(chem, rho_air, dz, nbin))
+        with trace.span("optics"):
+            out.update(optics.aerosol_optics(chem, rho_air, dz, nbin))
     return out

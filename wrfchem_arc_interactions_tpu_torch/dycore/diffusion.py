@@ -23,6 +23,7 @@ from wrfchem_arc_interactions_tpu_torch.grid import Grid
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import win
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
+from wrfchem_arc_interactions_tpu_torch.utils import trace
 from wrfchem_arc_interactions_tpu_torch.utils.device import pass_slices
 
 CS_SMAG = 0.25
@@ -146,16 +147,17 @@ def diffusion_tendencies(state, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
         out["th"] = out["th"] + _filter6(g["t"], f, dt)
 
     for a, b in pass_slices(len(scalars), state["t"].numel()) if scalars else ():
-        sc = torch.stack([state[q] for q in scalars[a:b]])
-        sc_pad = hx.pad(sc, 3)
-        sc_out = _hdiff(sc_pad, k_pad, grid)
-        if dyn.kvdif > 0.0:
-            sc_out = sc_out + _vdiff(sc, dyn.kvdif, dz2)
-        if dyn.diff_6th_opt:
-            sc_out = sc_out + _filter6(sc_pad, f, dt)
-        del sc, sc_pad
-        for i, q in enumerate(scalars[a:b]):
-            out[q] = sc_out[i]
+        with trace.span("pass"):
+            sc = torch.stack([state[q] for q in scalars[a:b]])
+            sc_pad = hx.pad(sc, 3)
+            sc_out = _hdiff(sc_pad, k_pad, grid)
+            if dyn.kvdif > 0.0:
+                sc_out = sc_out + _vdiff(sc, dyn.kvdif, dz2)
+            if dyn.diff_6th_opt:
+                sc_out = sc_out + _filter6(sc_pad, f, dt)
+            del sc, sc_pad
+            for i, q in enumerate(scalars[a:b]):
+                out[q] = sc_out[i]
     if dtke is not None:
         out["tke"] = out.get("tke", 0.0) + dtke
     return out

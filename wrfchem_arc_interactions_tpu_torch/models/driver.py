@@ -2,9 +2,12 @@
 the single-domain run loop).
 
 A `Simulation` owns the steppers, the step clock and the alarms (radt,
-chemdt, history, restart, auxhist), the step-time bookkeeping (the
-``Timing for main`` log lines, `phase_timing`), the NaN guard, the tslist
-series and the hourly emission stream.  The reference compiles three
+chemdt, history, restart, auxhist), the NaN guard, the tslist series and
+the hourly emission stream.  Each step is a span of `utils.trace`, and in
+it each executable call and the output; with tracing on, `trace.flush`
+prints the ``Timing for main`` line of each step from its span's device
+time, and `advance(..., phase_timing=True)` adds each executable's
+synchronised time to `phase_times`.  The reference compiles three
 executables — "main" every step, "rad" and "chem" on their alarms — and the
 port keeps the same steppers in the same alarm order within a step: chem,
 then rad, then main.  Model time reaches the solar ephemeris (of the rad
@@ -33,7 +36,7 @@ steppers and alarms are the same.  The output streams gather the state to
 rank 0, which alone writes (the same bytes as a run on one block); the
 tslist points are recorded by the rank that owns them and gathered at the
 end of every `advance`.  `gather_state` brings the global state to rank 0.
-`step_times`, `phase_times` and `mean_step_time` are this rank's.
+`phase_times` and the spans are this rank's.
 
 `full_step` is the reference's one-call step (radiation, the physics, the
 dynamics, chemistry and the boundary forcing) for callers that drive the
@@ -42,10 +45,10 @@ pieces without a `Simulation`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-import time
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -67,6 +70,7 @@ from wrfchem_arc_interactions_tpu_torch.parallel.sharded import (
 from wrfchem_arc_interactions_tpu_torch.physics.driver import post_dynamics, pre_dynamics
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.driver import radiation_driver
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
+from wrfchem_arc_interactions_tpu_torch.utils import trace
 from wrfchem_arc_interactions_tpu_torch.utils.checks import all_finite
 from wrfchem_arc_interactions_tpu_torch.utils.clock import ModelClock
 from wrfchem_arc_interactions_tpu_torch.utils.device import DeviceLike, resolve_device, sync
@@ -168,7 +172,6 @@ class Simulation:
         self.dt = cfg.time_control.dt
         self.time_s = 0.0
         self.step_idx = 0
-        self.step_times: List[float] = []
         self.hx = halo_ops_for(cfg, mesh)
         # calendar clock for the solar geometry and the log's timestamps
         self.clock = ModelClock(cfg.time_control.start_date)
@@ -270,57 +273,75 @@ class Simulation:
                 on_step: Optional[Callable[["Simulation"], None]] = None,
                 phase_timing: bool = False):
         """Advance n steps; call `on_step(self)` after each.  On the GPU the
-        steps are queued asynchronously, and `step_times` holds the host's
-        enqueue time unless `phase_timing` is set: then every phase (chem,
-        rad, main) ends in a device synchronisation and its time adds to
-        `self.phase_times`.  The reference fetches one element of a field
-        the phase writes for this; on CUDA one synchronisation closes every
-        queued phase, whatever it wrote."""
+        steps are queued asynchronously.  Each step, and in it each
+        executable call (chem, rad, main) and the output, is a span
+        (`utils.trace`).  With `phase_timing` every executable's span ends
+        in a device synchronisation and its host seconds add to
+        `self.phase_times`; where tracing is off, it is on for this call
+        alone.  The reference fetches one element of a field the phase
+        writes for this; on CUDA one synchronisation closes every queued
+        phase, whatever it wrote."""
         if phase_timing and not hasattr(self, "phase_times"):
             self.phase_times = {"chem": 0.0, "rad": 0.0, "main": 0.0}
-        for _ in range(n_steps):
-            do_rad = self.rad_every > 0 and self.step_idx % self.rad_every == 0
-            do_chem = self.chem_every > 0 and self.step_idx % self.chem_every == 0
-            t_start = t0 = time.perf_counter()
-            t_now = np.float32(self.time_s)
-            if do_chem:
+        # phase timing reads the executables' spans; a recorder of its own
+        # keeps a step's spans no longer than the step
+        own = trace.start(self.device) if phase_timing and not trace.enabled() else None
+        try:
+            for _ in range(n_steps):
+                with trace.span("step", step=self.step_idx, report=self._report_step):
+                    self._step(phase_timing)
+                if own is not None:
+                    own.discard()
+                if on_step is not None:
+                    on_step(self)
+        finally:
+            if own is not None:
+                trace.stop()
+        if self.mesh is not None:
+            self._ts_materialise()
+
+    def _step(self, phase_timing: bool):
+        do_rad = self.rad_every > 0 and self.step_idx % self.rad_every == 0
+        do_chem = self.chem_every > 0 and self.step_idx % self.chem_every == 0
+        t_now = np.float32(self.time_s)
+        if do_chem:
+            with self._phase("chem", phase_timing):
                 if self._stream_snaps is not None:
                     emis = self._stream_snaps[self.emissions.index_at(self.time_s)]
                     self.state = self._stepper("chem_stream")(self.state, self.grid,
                                                               t_now, emis)
                 else:
                     self.state = self._stepper("chem")(self.state, self.grid, t_now)
-                if phase_timing:
-                    t0 = self._close_phase("chem", t0)
-            if do_rad:
+        if do_rad:
+            with self._phase("rad", phase_timing):
                 self.state = self._stepper("rad")(self.state, self.grid, t_now)
-                if phase_timing:
-                    t0 = self._close_phase("rad", t0)
+        with self._phase("main", phase_timing):
             self.state = self._stepper("main")(self.state, self.grid, t_now)
-            if phase_timing:
-                self._close_phase("main", t0)
-            elapsed = time.perf_counter() - t_start
-            self.step_times.append(elapsed)
-            self.step_idx += 1
-            self.time_s += self.dt
-            if self.check_nans and not bool(all_finite(self.state["t"], self.hx)):
-                raise FloatingPointError(
-                    f"NaN in theta at step {self.step_idx} (t={self.time_s}s)")
-            log(f"Timing for main: time {self.clock.timestamp(self.time_s)} "
-                f"on domain 1: {elapsed:.5f} elapsed seconds", level=2)
-            if self._ts_points:
-                self._record_ts()
-            self._write_output()
-            if on_step is not None:
-                on_step(self)
-        if self.mesh is not None:
-            self._ts_materialise()
+        self.step_idx += 1
+        self.time_s += self.dt
+        if self.check_nans and not bool(all_finite(self.state["t"], self.hx)):
+            raise FloatingPointError(
+                f"NaN in theta at step {self.step_idx} (t={self.time_s}s)")
+        if self._ts_points:
+            self._record_ts()
+        self._write_output()
 
-    def _close_phase(self, phase: str, t0: float) -> float:
-        self.sync()
-        t1 = time.perf_counter()
-        self.phase_times[phase] += t1 - t0
-        return t1
+    def _phase(self, name: str, timed: bool):
+        """The span of one executable call; `timed`: closed by a
+        synchronisation, its host seconds added to ``phase_times``."""
+        return self._timed_phase(name) if timed else trace.span(name)
+
+    @contextlib.contextmanager
+    def _timed_phase(self, name: str):
+        with trace.span(name) as sp:
+            yield
+            self.sync()
+        self.phase_times[name] += sp.host_s
+
+    def _report_step(self, step: int, seconds: float):
+        """WRF's per-step timing line, from a step's span at `trace.flush`."""
+        log(f"Timing for main: time {self.clock.timestamp((step + 1) * self.dt)} "
+            f"on domain 1: {seconds:.5f} elapsed seconds", level=2)
 
     def gather_state(self, dst: int = 0) -> Optional[State]:
         """The global state on the host of mesh rank `dst` (None on the
@@ -337,18 +358,20 @@ class Simulation:
         aux = self.aux_every and n % self.aux_every == 0
         if not (hist or rst or aux):
             return
-        state = self.state if self.mesh is None else self.gather_state()
-        if state is None:
-            return
-        ext = hio.default_extension()
-        if hist:
-            hio.write_history(f"{out}/hist_{n:06d}{ext}", self.cfg, self._grid_out, state,
-                              self.time_s)
-        if rst:
-            hio.write_restart(f"{out}/restart_{n:06d}{ext}", self.cfg, state, n, self.time_s)
-        if aux:
-            diags.write_diags(f"{out}/auxdiag_{n:06d}{ext}", self.cfg, self._grid_out, state,
-                              self.time_s)
+        with trace.span("output"):
+            state = self.state if self.mesh is None else self.gather_state()
+            if state is None:
+                return
+            ext = hio.default_extension()
+            if hist:
+                hio.write_history(f"{out}/hist_{n:06d}{ext}", self.cfg, self._grid_out,
+                                  state, self.time_s)
+            if rst:
+                hio.write_restart(f"{out}/restart_{n:06d}{ext}", self.cfg, state, n,
+                                  self.time_s)
+            if aux:
+                diags.write_diags(f"{out}/auxdiag_{n:06d}{ext}", self.cfg, self._grid_out,
+                                  state, self.time_s)
 
     # -- tslist: per-step surface series at registered (label, j, i) points
 
@@ -445,7 +468,3 @@ class Simulation:
 
     def run_seconds(self, seconds: float, **kw):
         self.advance(int(round(seconds / self.dt)), **kw)
-
-    def mean_step_time(self, skip: int = 2) -> float:
-        ts = self.step_times[skip:] if len(self.step_times) > skip else self.step_times
-        return float(np.mean(ts)) if ts else float("nan")

@@ -30,6 +30,7 @@ from wrfchem_arc_interactions_tpu_torch.physics.radiation.rrtmg_sw import sw_flu
 from wrfchem_arc_interactions_tpu_torch.physics.radiation.simple import lw_simple, sw_simple
 from wrfchem_arc_interactions_tpu_torch.registry.state import State
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
+from wrfchem_arc_interactions_tpu_torch.utils import trace
 
 ALBEDO = 0.2
 JULIAN_DAY = 172.0   # near-solstice default for ideal runs
@@ -48,7 +49,8 @@ def _map_col_chunks(fn, ncol: int, *args, **kwargs):
     anything else is passed whole; the outputs (a dict of tensors whose
     last axis is the column) are joined again."""
     if ncol <= COL_CHUNK:
-        return fn(*args, **kwargs)
+        with trace.span("chunk"):
+            return fn(*args, **kwargs)
 
     def part(a, lo, hi):
         if isinstance(a, torch.Tensor) and a.dim() and a.shape[-1] == ncol:
@@ -58,8 +60,9 @@ def _map_col_chunks(fn, ncol: int, *args, **kwargs):
     outs = []
     for lo in range(0, ncol, COL_CHUNK):
         hi = min(lo + COL_CHUNK, ncol)
-        outs.append(fn(*(part(a, lo, hi) for a in args),
-                       **{k: part(v, lo, hi) for k, v in kwargs.items()}))
+        with trace.span("chunk"):
+            outs.append(fn(*(part(a, lo, hi) for a in args),
+                           **{k: part(v, lo, hi) for k, v in kwargs.items()}))
     return {k: torch.cat([o[k] for o in outs], dim=-1) for k in outs[0]}
 
 
@@ -140,50 +143,53 @@ def radiation_driver(state: State, grid: Grid, cfg: Config, time_s,
     out = dict(state)
     if cf is not None and "cldfra" in state:
         out["cldfra"] = unflat(cf)
-    if phys.ra_lw_physics == RAScheme.SIMPLE:
-        lw = lw_simple(p_lay, t_lay, dp_lay, qv, lwp, t_sfc)
-        out["rthraten_lw"] = unflat(lw["heating"] / exner)
-        out["glw"] = unflat(lw["glw"])
-        out["olr"] = unflat(lw["olr"])
-    elif phys.ra_lw_physics == RAScheme.RRTMG:
-        kw = {}
-        if aer_lw is not None:
-            kw["tau_aer_lw"] = aer_lw
-        if cf is not None:
-            kw["cldfra"], kw["mcica_seed"] = cf, seed
-        lw = _map_col_chunks(lw_fluxes, ncol, p_lay, t_lay, dp_lay, qv, lwp, t_sfc, **kw)
-        out["rthraten_lw"] = unflat(lw["heating"] / exner)
-        out["glw"] = unflat(lw["glw"])
-        out["olr"] = unflat(lw["olr"])
+    if phys.ra_lw_physics != RAScheme.NONE:
+        with trace.span("lw"):
+            if phys.ra_lw_physics == RAScheme.SIMPLE:
+                lw = lw_simple(p_lay, t_lay, dp_lay, qv, lwp, t_sfc)
+                out["rthraten_lw"] = unflat(lw["heating"] / exner)
+                out["glw"] = unflat(lw["glw"])
+                out["olr"] = unflat(lw["olr"])
+            elif phys.ra_lw_physics == RAScheme.RRTMG:
+                kw = {}
+                if aer_lw is not None:
+                    kw["tau_aer_lw"] = aer_lw
+                if cf is not None:
+                    kw["cldfra"], kw["mcica_seed"] = cf, seed
+                lw = _map_col_chunks(lw_fluxes, ncol, p_lay, t_lay, dp_lay, qv, lwp, t_sfc, **kw)
+                out["rthraten_lw"] = unflat(lw["heating"] / exner)
+                out["glw"] = unflat(lw["glw"])
+                out["olr"] = unflat(lw["olr"])
     if phys.ra_sw_physics != RAScheme.NONE:
-        mu0 = cos_zenith(time_s, grid.xlat, grid.xlong,
-                         julian_day=julian_day).reshape(ncol)
-        albedo = torch.full((ncol,), ALBEDO, dtype=p_lay.dtype, device=p_lay.device)
-    if phys.ra_sw_physics == RAScheme.SIMPLE:
-        sw = sw_simple(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo)
-        out["rthraten_sw"] = unflat(sw["heating"] / exner)
-        out["swdown"] = unflat(sw["swdown"])
-        out["swupt"] = unflat(sw["swup_toa"])
-    elif phys.ra_sw_physics == RAScheme.RRTMG:
-        kw = {}
-        if aer_sw is not None:
-            kw["tau_aer_sw"], kw["ssa_aer_sw"], kw["asy_aer_sw"] = aer_sw
-        if cf is not None:
-            kw["cldfra"], kw["mcica_seed"] = cf, seed
-        # Twomey / first-indirect pathway: prognostic droplet number sets
-        # the cloud effective radius re = k_disp (3 qc / (4 pi rho_w
-        # Nc))^(1/3) (qc and Nc both per kg air, so the air density
-        # cancels), clipped to the 2.5-50 um validity range of the
-        # geometric-optics cloud tau
-        if phys.progn and "nc" in state and "qc" in state:
-            qc_f = state["qc"].reshape(nz, ncol)
-            nc_f = torch.clamp(state["nc"].reshape(nz, ncol), min=1.0e3)
-            rvol = (3.0 * torch.clamp(qc_f, min=0.0)
-                    / (4.0 * np.pi * 1000.0 * nc_f)) ** (1.0 / 3.0)
-            kw["re_liq"] = torch.clamp(1.1 * rvol, 2.5e-6, 50.0e-6)
-        sw = _map_col_chunks(sw_fluxes, ncol, p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo,
-                              **kw)
-        out["rthraten_sw"] = unflat(sw["heating"] / exner)
-        out["swdown"] = unflat(sw["swdown"])
-        out["swupt"] = unflat(sw["swup_toa"])
+        with trace.span("sw"):
+            mu0 = cos_zenith(time_s, grid.xlat, grid.xlong,
+                             julian_day=julian_day).reshape(ncol)
+            albedo = torch.full((ncol,), ALBEDO, dtype=p_lay.dtype, device=p_lay.device)
+            if phys.ra_sw_physics == RAScheme.SIMPLE:
+                sw = sw_simple(p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo)
+                out["rthraten_sw"] = unflat(sw["heating"] / exner)
+                out["swdown"] = unflat(sw["swdown"])
+                out["swupt"] = unflat(sw["swup_toa"])
+            elif phys.ra_sw_physics == RAScheme.RRTMG:
+                kw = {}
+                if aer_sw is not None:
+                    kw["tau_aer_sw"], kw["ssa_aer_sw"], kw["asy_aer_sw"] = aer_sw
+                if cf is not None:
+                    kw["cldfra"], kw["mcica_seed"] = cf, seed
+                # Twomey / first-indirect pathway: prognostic droplet number sets
+                # the cloud effective radius re = k_disp (3 qc / (4 pi rho_w
+                # Nc))^(1/3) (qc and Nc both per kg air, so the air density
+                # cancels), clipped to the 2.5-50 um validity range of the
+                # geometric-optics cloud tau
+                if phys.progn and "nc" in state and "qc" in state:
+                    qc_f = state["qc"].reshape(nz, ncol)
+                    nc_f = torch.clamp(state["nc"].reshape(nz, ncol), min=1.0e3)
+                    rvol = (3.0 * torch.clamp(qc_f, min=0.0)
+                            / (4.0 * np.pi * 1000.0 * nc_f)) ** (1.0 / 3.0)
+                    kw["re_liq"] = torch.clamp(1.1 * rvol, 2.5e-6, 50.0e-6)
+                sw = _map_col_chunks(sw_fluxes, ncol, p_lay, t_lay, dp_lay, qv, lwp, mu0, albedo,
+                                      **kw)
+                out["rthraten_sw"] = unflat(sw["heating"] / exner)
+                out["swdown"] = unflat(sw["swdown"])
+                out["swupt"] = unflat(sw["swup_toa"])
     return out
