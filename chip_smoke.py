@@ -5,7 +5,7 @@
 Phases (each raises on failure, and the script then exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel: the three sources under
+2. build every kernel: the four sources under
    ``wrfchem_arc_interactions_tpu_torch/csrc`` and the ROS2 gas-chemistry
    kernel, whose source ``ops/ros2_kernel.py`` generates from the CBM-Z
    tables into ``build/`` (one nvcc per source, all at once);
@@ -23,7 +23,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    with CUDA events, beside its bound, with each library's build flags
    and, for the multi-tracer kernel, the launch plan of each grid
    (`tracers_kernel.plan`: tile, blocks an SM, registers and spill bytes;
-   printed beside every time of that kernel below too);
+   printed beside every time of that kernel below too); the scalars'
+   diffusion kernel bitwise at config 5's block, a pass of 18 and one of
+   17 scalars with the vertical term and one of 18 with the 6th-order
+   filter, each timed beside its bound and its plain version, and one main
+   step's six passes summed;
 4. slice phase: BASELINE config 3 exactly as bench.py's ``_cfg3`` builds it
    (100x100x50, dx = 1 km, dt = 6 s, RRTMG SW/LW every 600 s, MOSAIC 4-bin
    optics every 600 s with aer_ra_feedback, gas and aerosol chemistry off)
@@ -167,7 +171,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    cards), config 4's package at 500x500x60 with 107 scalars from noon
    UTC through `Simulation`: the case's build time, 2 warm-up steps and a
    20-step window (chem calls at steps 10 and 20, each in two blocks of
-   rows) with the exact launches, the window's peak memory and config 4's
+   rows) with the exact launches (the diffusion kernel's: 6 passes a
+   step), the window's peak memory and config 4's
    physical checks and the caching allocator's counters over it; one
    synchronised call of each executable with its peak memory above what it
    finds; profiles of one main step and one
@@ -214,6 +219,7 @@ REPLACES = {
     "mie_cheb_eval": "wrfchem_arc_interactions_tpu/ops/pallas_mie.py:157",
     "advect_tracers": "wrfchem_arc_interactions_tpu/ops/pallas_adv_multi.py:281",
     "ros2_integrate": "wrfchem_arc_interactions_tpu/ops/pallas_ros2.py:230",
+    "diffuse_scalars": "none: wrfchem_arc_interactions_tpu/dycore/diffusion.py is plain jnp",
 }
 # ros2_integrate's CUDA source is generated at run time by this module
 ROS2_SOURCE = f"{PKG}/ops/ros2_kernel.py"
@@ -562,6 +568,74 @@ def _tracers_bound(nt, nz, ny, nx, pd, msf=False):
                   + (3 if msf else 2) * ny * nx + nz)
     ops = (TRACER_OPS[pd] + (TRACER_MSF_OPS[pd] if msf else 0)) * nt * cells
     return _bound(nbytes, ops)
+
+
+def _diffusion_bound(nt, nz, ny, nx, vdiff):
+    """diffuse_scalars: the padded slice and K read once, dz2 once with the
+    vertical term, the tendency written once; ~20 float operations a cell
+    (the K faces 8, the Laplacian 11, the vertical term 5)."""
+    padded = nz * (ny + 6) * (nx + 6)
+    cells = nz * ny * nx
+    nbytes = 4 * ((nt + 1) * padded + (cells if vdiff else 0) + nt * cells)
+    return _bound(nbytes, (24 if vdiff else 19) * nt * cells)
+
+
+def kernel_diffusion(dev, card, nz=60, ny=500, nx=500, nts=(18, 17), passes=(5, 1)):
+    """The scalars' diffusion kernel at config 5's block: a pass of 18 and
+    one of 17 scalars (a step's six passes of 107 are 5 x 18 + 17), with
+    config 4's vertical term (kvdif 30, no filter), each checked bitwise
+    against its plain version and timed beside it and its bound; the
+    filter's variant at 18 scalars too.  Returns the kernel's entry: per
+    pass of 18 and per step."""
+    from wrfchem_arc_interactions_tpu_torch.config import Config, DomainConfig
+    from wrfchem_arc_interactions_tpu_torch.grid import make_grid
+    from wrfchem_arc_interactions_tpu_torch.models.soundings import constant_n2_theta
+    from wrfchem_arc_interactions_tpu_torch.ops import build, diffusion_kernel as dk
+    grid = make_grid(Config(domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=1000.0, dy=1000.0,
+                                                ztop=17000.0, p_top=8000.0)),
+                     constant_n2_theta(), dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    k_pad = 10.0 + 290.0 * torch.rand((nz, ny + 6, nx + 6), generator=g, device=dev)
+    dz2 = (100.0 + 500.0 * torch.rand((nz, ny, nx), generator=g, device=dev)) ** 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per = {}
+    for nt, filt in ((nts[0], False), (nts[1], False), (nts[0], True)):
+        sc_pad = 1e-3 * (1.0 + torch.rand((nt, nz, ny + 6, nx + 6), generator=g, device=dev))
+        f6 = (0.12, 6.0) if filt else None
+        args = (sc_pad, k_pad, grid, dz2, 30.0, f6)
+        n0 = dk.diffuse_scalars.launches
+        out = dk.diffuse_scalars(*args)
+        ref = dk.diffuse_scalars_reference(*args)
+        torch.cuda.synchronize()
+        if dk.diffuse_scalars.launches != n0 + 1:
+            raise RuntimeError("diffuse_scalars: not one launch a pass")
+        max_abs = float((out - ref).abs().max())
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"diffuse_scalars differs from its plain version at nt {nt} "
+                               f"(filter {filt}): max|d| {max_abs}")
+        del out, ref
+        ms = _device_ms(lambda: dk.diffuse_scalars(*args), calls=5, trials=20)
+        plain = _profiled_ms(lambda: dk.diffuse_scalars_reference(*args))
+        bound = _diffusion_bound(nt, nz, ny, nx, True)
+        key = f"nt{nt}" + ("_filter6" if filt else "")
+        per[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                    "roofline_pct": 100.0 * bound[0] / ms, "max_abs_err": max_abs}
+        print(f"diffuse_scalars at ({nt}, {nz}, {ny + 6}, {nx + 6}), kvdif 30, filter "
+              f"{'on' if filt else 'off'}: bitwise its plain version; {ms:.4f} ms a pass, "
+              f"{100.0 * bound[0] / ms:.1f}% of its {bound[0]:.4f} ms bound ({bound[1]}), "
+              f"plain {plain:.3f} ms; {_flags('diffuse_scalars')}; grid "
+              f"{dk.plan(build.load('diffuse_scalars'), nt, nz, ny, nx, sms)} [{card}]")
+        del sc_pad, args
+        torch.cuda.empty_cache()
+    a, b = (per[f"nt{n}"] for n in nts)
+    step = {k: passes[0] * a[k] + passes[1] * b[k] for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"diffuse_scalars, one main step of config 5's block ({passes[0]} passes of "
+          f"{nts[0]} and {passes[1]} of {nts[1]} scalars): {step['ms']:.3f} ms against a "
+          f"{step['bound_ms']:.3f} ms bound, plain {step['plain_ms']:.2f} ms [{card}]")
+    e = _entry("diffuse_scalars", 0, max(v["max_abs_err"] for v in per.values()), a["ms"],
+               a["plain_ms"], (a["bound_ms"], a["bound_by"]))
+    e.update({"shape": [nts[0], nz, ny + 6, nx + 6], "per_pass": per, "per_step": step})
+    return e
 
 
 def _entry(name, launches, max_abs, ms, plain_ms, bound, source=None):
@@ -3045,7 +3119,9 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     from wrfchem_arc_interactions_tpu_torch.chem.driver import row_blocks
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.ops import diffusion_kernel as dk
     from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
+    from wrfchem_arc_interactions_tpu_torch.utils.device import pass_slices
     label = "config 5's block"
     cfg = _cfg4(*shape, start_date="2000-06-20_12:00:00")
     d = cfg.domain
@@ -3070,12 +3146,18 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     sim.sync()
     warm_s = time.perf_counter() - t0
     _reset_counts()
+    diff0 = dk.diffuse_scalars.launches
     alloc0 = torch.cuda.memory_stats(dev)
     t0 = time.perf_counter()
     sim.advance(steps)              # steps 2..21: chem at 10 and 20
     sim.sync()
     wall = time.perf_counter() - t0
     launches = _counts()
+    diff_launches = dk.diffuse_scalars.launches - diff0
+    diff_passes = len(pass_slices(nt, d.nx * d.ny * d.nz))
+    if diff_launches != diff_passes * steps:
+        raise RuntimeError(f"{label}: {diff_launches} diffusion launches in the {steps}-step "
+                           f"window, expected {diff_passes} a step")
     alloc = _allocator_counts(alloc0, torch.cuda.memory_stats(dev))
     peak_window = torch.cuda.max_memory_allocated(dev)
     peak_reserved = torch.cuda.max_memory_reserved(dev)
@@ -3099,7 +3181,8 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
           f"max w {w_max:.3f} m/s, cloudy cells {n_cloudy} ({with_nc} with droplets), O3 "
           f"{o3[0]:.5f}-{o3[1]:.5f} ppmv, OLR {olr[0]:.1f}-{olr[1]:.1f} W m-2, tau_aer_sw "
           f"{float(sim.state['tau_aer_sw'].min()):.4g}-"
-          f"{float(sim.state['tau_aer_sw'].max()):.4g}; kernel launches {launches}")
+          f"{float(sim.state['tau_aer_sw'].max()):.4g}; kernel launches {launches}, "
+          f"diffuse_scalars {diff_launches} ({diff_passes} passes a step)")
 
     t_now = np.float32(sim.time_s)
     execs = {}
@@ -3165,7 +3248,7 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
                "width_window": list(window),
                "width_fields_written": {k: len(v) for k, v in written.items()},
                "restart": restart,
-               "launches": launches}
+               "launches": launches, "diffusion_launches": diff_launches}
     del sim
     return launches, numbers
 
@@ -3461,6 +3544,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     entries["ros2_integrate"] = kernel_ros2(dev, d.nx * d.ny * d.nz)
     torch.cuda.empty_cache()
+    diffusion = kernel_diffusion(dev, card)
+    torch.cuda.empty_cache()
 
     sim, launches3, ms_step = slice_phase(cfg, grid, state, dev, args.steps, card)
     launches1 = slice1_phase(dev, card)
@@ -3574,6 +3659,9 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{name} was not launched on config 5's block, on slice 9's "
                                "path, on every rank of slice 10's or on both domains of "
                                "every rank of slice 11's")
+    # the diffusion kernel's launches: config 5's block's window (6 passes a step)
+    diffusion["launches"] = numbers12["diffusion_launches"]
+    entries["diffuse_scalars"] = diffusion
     print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8,
                       "slice9": numbers9, "slice10": numbers10, "slice11": numbers11,
                       **numbers_items}))

@@ -49,6 +49,7 @@ from wrfchem_arc_interactions_tpu_torch.chem import driver as tchem  # noqa: E40
 from wrfchem_arc_interactions_tpu_torch.dycore import diffusion as tdiff  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.grid.grid import TENSOR_FIELDS  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.ops.stencil import win  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.registry.state import (  # noqa: E402
     advected_names, state_from_numpy,
@@ -154,3 +155,80 @@ def test_diffusion_in_stack_slices(monkeypatch):
     for k in ref:
         a = np.asarray(ref[k])
         assert _rel(a, passes[k].numpy(), float(np.abs(a).max())) <= 1e-5, k
+
+
+# The scalars' operators of `dycore/diffusion.py`, written out here as the
+# plain PyTorch they are, so that a change to `ops/diffusion_kernel.py`'s
+# plain version that moves a value shows.
+def _hdiff_written_out(q_pad, k_pad, grid, pad=3):
+    rdx2 = grid.rdx * grid.rdx
+    rdy2 = grid.rdy * grid.rdy
+    k_e = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, 0, 1, pad=pad))
+    k_w = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, 0, -1, pad=pad))
+    k_n = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, 1, 0, pad=pad))
+    k_s = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, -1, 0, pad=pad))
+    q0 = win(q_pad, 0, 0, pad=pad)
+    return (rdx2 * (k_e * (win(q_pad, 0, 1, pad=pad) - q0)
+                    - k_w * (q0 - win(q_pad, 0, -1, pad=pad)))
+            + rdy2 * (k_n * (win(q_pad, 1, 0, pad=pad) - q0)
+                      - k_s * (q0 - win(q_pad, -1, 0, pad=pad))))
+
+
+def _vdiff_written_out(q, kv, dz2):
+    dq = q[..., 1:, :, :] - q[..., :-1, :, :]
+    zero = torch.zeros_like(q[..., :1, :, :])
+    dq_up = torch.cat([dq, zero], dim=-3)
+    dq_dn = torch.cat([zero, dq], dim=-3)
+    return kv * (dq_up - dq_dn) / dz2
+
+
+def _filter6_written_out(q_pad, factor, dt):
+    wx = [win(q_pad, 0, m) for m in (-3, -2, -1, 0, 1, 2, 3)]
+    wy = [win(q_pad, m, 0) for m in (-3, -2, -1, 0, 1, 2, 3)]
+    coef = factor / (64.0 * dt)
+    sx = (-wx[0] + 6 * wx[1] - 15 * wx[2] + 20 * wx[3] - 15 * wx[4] + 6 * wx[5] - wx[6])
+    sy = (-wy[0] + 6 * wy[1] - 15 * wy[2] + 20 * wy[3] - 15 * wy[4] + 6 * wy[5] - wy[6])
+    return -coef * (sx + sy)
+
+
+@pytest.mark.parametrize("perturbed", [False, True], ids=["case", "perturbed"])
+@pytest.mark.parametrize("diff_6th_opt", [0, 2])
+def test_diffusion_stack_is_its_operators_written_out(monkeypatch, diff_6th_opt, perturbed):
+    """`diffusion_tendencies` on CPU tensors, whose scalars' pass is
+    `ops/diffusion_kernel.py`'s plain version there, bitwise as the stack's
+    operators written out (`_hdiff`, then `+ _vdiff`, then `+ _filter6` on
+    the padded stack, K from the Smagorinsky closure), on
+    test_diffusion_in_stack_slices's case and on it with every scalar
+    perturbed (by up to 10%, and by up to 2e-7 where it is 0, so that each
+    tendency is live), in one pass and in passes of 18 scalars, with kvdif
+    30 and the 6th-order filter off and on."""
+    _, tc, jg, js = _case()
+    tc = tc.replace(dynamics=dataclasses.replace(tc.dynamics, diff_6th_opt=diff_6th_opt))
+    grid = jax_grid_to_port(jg)
+    state = state_from_numpy(js, "cpu")
+    names = advected_names(tc)
+    if perturbed:
+        rng = np.random.default_rng(136)
+        for q in names:
+            noise = torch.from_numpy(rng.uniform(0.9, 1.1, tuple(state[q].shape))
+                                     .astype(np.float32))
+            state[q] = state[q] * noise + 1e-6 * (noise - 0.9)
+    hx = HaloOps()
+    g = hx.pad_many({"u": state["u"], "v": state["v"]}, 3)
+    k_pad = hx.pad(tdiff.smagorinsky_k(g["u"], g["v"], grid, tc), 3)
+    ph_full = grid.phb + state["ph"]
+    dz = (ph_full[1:] - ph_full[:-1]) / 9.81
+    sc = torch.stack([state[q] for q in names])
+    sc_pad = hx.pad(sc, 3)
+    want = _hdiff_written_out(sc_pad, k_pad, grid) + _vdiff_written_out(sc, 30.0, dz * dz)
+    if diff_6th_opt:
+        want = want + _filter6_written_out(sc_pad, tc.dynamics.diff_6th_factor, 6.0)
+    assert tc.dynamics.kvdif == 30.0
+    for elements in (None, 20 * state["t"].numel()):
+        if elements is not None:
+            monkeypatch.setattr(tdevice, "PASS_ELEMENTS", elements)
+        out = tdiff.diffusion_tendencies(state, grid, tc, hx, 6.0, names)
+        differ = [q for i, q in enumerate(names) if not torch.equal(out[q], want[i])]
+        assert not differ, differ
+    live = sum(float(want[i].abs().max()) > 0.0 for i in range(len(names)))
+    assert live == len(names) if perturbed else live > 0

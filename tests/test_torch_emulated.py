@@ -29,7 +29,11 @@ to its plain PyTorch version:
   meshes, with seams on one to four sides and x tiles, against the plain
   version on the whole domain;
 - the ROS2 gas kernel that ``ops/ros2_kernel.py`` generates, for one and two
-  substeps over a few blocks of its persistent grid.
+  substeps over a few blocks of its persistent grid;
+- ``csrc/diffuse_scalars.cu`` inside `diffusion_tendencies` on a squall-line
+  case, with and without the vertical term and the 6th-order filter, on
+  slices of 1, 3 and 18 scalars, with K from the Smagorinsky closure and
+  from the TKE closure, on a domain whose tiles end ragged in x and y.
 
 ``csrc/mie_cheb_eval.cu`` is built with multiply-add contraction
 (``-ffp-contract=fast``, as ``ops/build.py`` builds it without
@@ -58,10 +62,13 @@ torch = pytest.importorskip("torch")
 # intra-op threads of many tiny operations only contend for the cores)
 torch.set_num_threads(1)
 
+from wrfchem_arc_interactions_tpu_torch import config as tcfg  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.chem import gas as tgas  # noqa: E402
-from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind, KMOpt  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.dycore import diffusion as tdiff  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.models import ideal as tideal  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.ops import (  # noqa: E402
-    adv_kernel, build, mie_kernel, ros2_kernel, tracers_kernel,
+    adv_kernel, build, diffusion_kernel, mie_kernel, ros2_kernel, tracers_kernel,
 )
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.mesh import Mesh  # noqa: E402
@@ -593,12 +600,106 @@ def test_emulated_scalar_kernel_with_map_factor_is_bitwise(adv_lib, shape):
     assert not torch.equal(out, _emulated_scalar(adv_lib, shape, msf=False)[1])
 
 
+@pytest.fixture(scope="module")
+def diffusion_lib(tmp_path_factory):
+    with open(build._source("diffuse_scalars")) as f:
+        return _emulated(f.read(), "diffuse_scalars", str(tmp_path_factory.mktemp("emu")))
+
+
+# the diffusion case: 40 columns (x tiles of 32 and 8) by 37 rows (y tiles
+# of 16, 16 and 5, the last lane's two rows cut after one), 6 levels; on
+# the stand-in's 2 SMs slices of 1 and 3 scalars march in z chunks of 1 and
+# 3 levels (a chunk starts above the surface), 18 scalars in one chunk
+DIFF_SHAPE = (6, 37, 40)
+DIFF_SCALARS = 18
+
+
+def _diffusion_cfg(**dyn):
+    nz, ny, nx = DIFF_SHAPE
+    c = tcfg.Config(domain=tcfg.DomainConfig(nx=nx, ny=ny, nz=nz, dx=1000.0, dy=1000.0,
+                                             ztop=17000.0, p_top=8000.0),
+                    time_control=tcfg.TimeControl(dt=6.0))
+    return c.replace(dynamics=dataclasses.replace(c.dynamics, **dyn))
+
+
+@pytest.fixture(scope="module")
+def diffusion_case():
+    """The squall line with a sheared, perturbed flow (so that K varies from
+    cell to cell), a TKE field, and 18 scalars s0 .. s17 of structure on
+    every scale."""
+    grid, state = tideal.make_case(_diffusion_cfg(), "squall2d_x", device="cpu",
+                                   bubble_amp=3.0)
+    rng = np.random.default_rng(19)
+    state = dict(state)
+    for k in ("u", "v"):
+        state[k] = state[k] + _t(rng.normal(scale=2.0, size=tuple(state[k].shape)))
+    state["tke"] = _t(rng.uniform(0.05, 2.0, tuple(state["t"].shape)))
+    for n in range(DIFF_SCALARS):
+        smooth = np.cumsum(rng.normal(size=tuple(state["t"].shape)), axis=-1)
+        state[f"s{n}"] = _t(10.0 ** rng.uniform(-3, 3) * (1.0 + 0.1 * smooth
+                                                          + rng.uniform(size=smooth.shape)))
+    return grid, state
+
+
+@pytest.mark.parametrize("km", ["smag3d", "tke"])
+@pytest.mark.parametrize("nt", [1, 3, DIFF_SCALARS])
+@pytest.mark.parametrize("diff_6th_opt", [0, 1, 2])
+@pytest.mark.parametrize("kvdif", [0.0, 30.0])
+def test_emulated_diffusion_kernel_is_bitwise_its_plain_version(
+        diffusion_lib, diffusion_case, monkeypatch, kvdif, diff_6th_opt, nt, km):
+    """`diffusion_tendencies` with the scalars' pass through the emulated
+    kernel, bitwise as with the plain version, on a slice of `nt` scalars
+    with K from the closure `km`; the pass is one launch."""
+    grid, state = diffusion_case
+    cfg = _diffusion_cfg(kvdif=kvdif, diff_6th_opt=diff_6th_opt, diff_6th_factor=0.12,
+                         km_opt=KMOpt(km))
+    names = tuple(f"s{n}" for n in range(nt))
+    ref = tdiff.diffusion_tendencies(state, grid, cfg, HaloOps(), 6.0, names)
+    calls = []
+
+    def emulated(sc_pad, k_pad, grid, dz2=None, kvdif=0.0, filter6=None):
+        diffusion_kernel._check(sc_pad, k_pad, dz2)
+        assert (dz2 is not None) == (cfg.dynamics.kvdif > 0.0)
+        assert (filter6 is not None) == bool(diff_6th_opt)
+        out = torch.full((sc_pad.shape[0], sc_pad.shape[1], *DIFF_SHAPE[1:]), float("nan"))
+        assert diffusion_kernel.launch(diffusion_lib, sc_pad, k_pad, dz2, out, grid, kvdif,
+                                       filter6, None) == 0
+        calls.append(tuple(sc_pad.shape))
+        return out
+
+    monkeypatch.setattr(diffusion_kernel, "diffuse_scalars", emulated)
+    out = tdiff.diffusion_tendencies(state, grid, cfg, HaloOps(), 6.0, names)
+    assert calls == [(nt, DIFF_SHAPE[0], DIFF_SHAPE[1] + 6, DIFF_SHAPE[2] + 6)]
+    assert set(out) == set(ref)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+    for k in names:
+        assert float(ref[k].abs().max()) > 0.0
+
+
+def test_emulated_diffusion_kernel_plans(diffusion_lib):
+    """The launch plan: one z chunk at config 5's block (a pass of 18
+    scalars on 16 x 32 tiles of 32 x 16); z chunks where a slice gives few
+    tiles for the card's SMs, as in the bitwise cases above."""
+    def chunks(*shape, sms):
+        p = diffusion_kernel.plan(diffusion_lib, *shape, sms=sms)
+        return p["tiles_x"], p["tiles_y"], p["kc"], p["chunks"], p["blocks"]
+
+    assert chunks(18, 60, 500, 500, sms=132) == (16, 32, 60, 1, 9216)
+    assert chunks(47, 50, 100, 100, sms=132) == (4, 7, 25, 2, 2632)
+    assert chunks(1, *DIFF_SHAPE, sms=2) == (2, 3, 1, 6, 36)
+    assert chunks(3, *DIFF_SHAPE, sms=2) == (2, 3, 3, 2, 36)
+    assert chunks(DIFF_SCALARS, *DIFF_SHAPE, sms=2) == (2, 3, 6, 1, 108)
+    p = diffusion_kernel.plan(diffusion_lib, 1, 1, 1, 1, sms=132)
+    assert (p["threads"], p["tile_x"], p["tile_y"], p["blocks"]) == (256, 32, 16, 1)
+
+
 def test_kernel_flags_enter_the_library_name(monkeypatch):
     """The Mie evaluator is built with multiply-add contraction, every other
     kernel without; a library built with other flags has another name, so
     it is never loaded in place of the right one."""
     assert "--fmad=false" not in build.nvcc_flags("mie_cheb_eval")
-    for name in ("advect_scalar_5_3", "advect_tracers"):
+    for name in ("advect_scalar_5_3", "advect_tracers", "diffuse_scalars"):
         assert "--fmad=false" in build.nvcc_flags(name)
     paths = {name: build.lib_path(name) for name in build.SOURCES}
     monkeypatch.setitem(build.DROPPED_FLAGS, "mie_cheb_eval", ())

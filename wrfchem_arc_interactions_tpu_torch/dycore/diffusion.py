@@ -6,9 +6,10 @@ The 2D Smagorinsky closure on coordinate surfaces plus background khdif
 (km_opt=tke); the constant-K vertical diffusion (kvdif); and the 6th-order
 numerical filter (diff_6th_opt 1 and 2 alike, as in the reference's
 `_filter6`).  Tendencies are computed on uncoupled fields and returned as a
-phys_tend dict ({u, v, th, <scalars>[, tke]}).  The scalars go through every
-operator as one (nt, nz, ny, nx) stack, with the reference's per-scalar
-arithmetic per element, so a hundred scalars cost the launches of one.
+phys_tend dict ({u, v, th, <scalars>[, tke]}).  The scalars go through
+their operators as (nt, nz, ny, nx) stacks, with the reference's per-scalar
+arithmetic per element: one launch of `ops/diffusion_kernel.py`'s kernel a
+pass on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 from wrfchem_arc_interactions_tpu_torch.config import Config
 from wrfchem_arc_interactions_tpu_torch.config.namelist import KMOpt
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
+from wrfchem_arc_interactions_tpu_torch.ops import diffusion_kernel
+from wrfchem_arc_interactions_tpu_torch.ops.diffusion_kernel import _filter6, _hdiff, _vdiff
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import win
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps
 from wrfchem_arc_interactions_tpu_torch.utils import constants as c
@@ -41,41 +44,6 @@ def smagorinsky_k(u_pad, v_pad, grid: Grid, cfg: Config):
     delta2 = grid.dx * grid.dy
     return (CS_SMAG ** 2) * delta2 * torch.sqrt(torch.clamp(defor2, min=0.0)) \
         + cfg.dynamics.khdif
-
-
-def _hdiff(q_pad, k_pad, grid: Grid, pad=3):
-    """del . (K del q) horizontal, 2nd order, K at mass points."""
-    rdx2 = grid.rdx * grid.rdx
-    rdy2 = grid.rdy * grid.rdy
-    k_e = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, 0, 1, pad=pad))
-    k_w = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, 0, -1, pad=pad))
-    k_n = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, 1, 0, pad=pad))
-    k_s = 0.5 * (win(k_pad, 0, 0, pad=pad) + win(k_pad, -1, 0, pad=pad))
-    q0 = win(q_pad, 0, 0, pad=pad)
-    return (rdx2 * (k_e * (win(q_pad, 0, 1, pad=pad) - q0)
-                    - k_w * (q0 - win(q_pad, 0, -1, pad=pad)))
-            + rdy2 * (k_n * (win(q_pad, 1, 0, pad=pad) - q0)
-                      - k_s * (q0 - win(q_pad, -1, 0, pad=pad))))
-
-
-def _vdiff(q, kv, dz2):
-    """Constant-K vertical diffusion d/dz(K dq/dz) on mass levels (z is
-    axis -3; leading axes batch)."""
-    dq = q[..., 1:, :, :] - q[..., :-1, :, :]
-    zero = torch.zeros_like(q[..., :1, :, :])
-    dq_up = torch.cat([dq, zero], dim=-3)
-    dq_dn = torch.cat([zero, dq], dim=-3)
-    return kv * (dq_up - dq_dn) / dz2
-
-
-def _filter6(q_pad, factor: float, dt: float):
-    """6th-order numerical filter in x and y (diff_6th_opt)."""
-    wx = [win(q_pad, 0, m) for m in (-3, -2, -1, 0, 1, 2, 3)]
-    wy = [win(q_pad, m, 0) for m in (-3, -2, -1, 0, 1, 2, 3)]
-    coef = factor / (64.0 * dt)
-    sx = (-wx[0] + 6 * wx[1] - 15 * wx[2] + 20 * wx[3] - 15 * wx[4] + 6 * wx[5] - wx[6])
-    sy = (-wy[0] + 6 * wy[1] - 15 * wy[2] + 20 * wy[3] - 15 * wy[4] + 6 * wy[5] - wy[6])
-    return -coef * (sx + sy)
 
 
 CK_TKE = 0.10      # K = ck * l * sqrt(e)
@@ -148,14 +116,11 @@ def diffusion_tendencies(state, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
 
     for a, b in pass_slices(len(scalars), state["t"].numel()) if scalars else ():
         with trace.span("pass"):
-            sc = torch.stack([state[q] for q in scalars[a:b]])
-            sc_pad = hx.pad(sc, 3)
-            sc_out = _hdiff(sc_pad, k_pad, grid)
-            if dyn.kvdif > 0.0:
-                sc_out = sc_out + _vdiff(sc, dyn.kvdif, dz2)
-            if dyn.diff_6th_opt:
-                sc_out = sc_out + _filter6(sc_pad, f, dt)
-            del sc, sc_pad
+            sc_pad = hx.pad(torch.stack([state[q] for q in scalars[a:b]]), 3)
+            sc_out = diffusion_kernel.diffuse_scalars(
+                sc_pad, k_pad, grid, dz2 if dyn.kvdif > 0.0 else None, dyn.kvdif,
+                (f, dt) if dyn.diff_6th_opt else None)
+            del sc_pad
             for i, q in enumerate(scalars[a:b]):
                 out[q] = sc_out[i]
     if dtke is not None:
