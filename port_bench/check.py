@@ -14,6 +14,12 @@ The numbers, each held to its limit (the cell's ``limits/<cell>.json``):
 A field that holds anything but finite values on either side reads inf.
 `verdict` turns the numbers into `correct`, for the port and for the
 control put in its place alike.
+
+On a cell of several cards no card holds the whole domain: the start's
+statistics are taken on rank 0, which holds both global cases in turn,
+and the state's per field from `field_maxima` of each rank's tiles,
+joined by `merge_maxima` before `errs_from_maxima` divides, so that
+`state_err` is the whole domain's number, as `field_errs` gives it.
 """
 
 from __future__ import annotations
@@ -56,29 +62,68 @@ def stats_err(port: dict, ref: dict) -> tuple:
     return worst, where
 
 
+def field_maxima(port: dict, ref: dict, device) -> dict:
+    """{field: (max|port - ref|, max|ref|, equal, finite)} in float64 on
+    the host, the parts of `field_errs` that reduce over pieces of a
+    domain by a maximum (and an all): `merge_maxima` joins the pieces and
+    `errs_from_maxima` reads the whole domain's errors from them.  A field
+    missing on one side, or of another shape, reads (inf, inf, False,
+    False).  `port` may sit on the host; each field goes to `device`."""
+    out = {}
+    for k in sorted(set(port) | set(ref)):
+        if k not in port or k not in ref:
+            out[k] = (math.inf, math.inf, False, False)
+            continue
+        a = port[k].to(device)
+        b = ref[k].to(device)
+        if a.shape != b.shape:
+            out[k] = (math.inf, math.inf, False, False)
+            continue
+        b64 = b.double()
+        scale = float(b64.abs().max()) if b.numel() else 0.0
+        if torch.equal(a, b):
+            out[k] = (0.0, scale, True, bool(torch.isfinite(b).all()))
+        elif not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            out[k] = (math.inf, scale, False, False)
+        else:
+            out[k] = (float((a.double() - b64).abs().max()), scale, False, True)
+        del a, b, b64
+    return out
+
+
+def merge_maxima(parts) -> dict:
+    """`field_maxima` of pieces that tile a domain, joined into the
+    domain's: each maximum's maximum, each flag's all; a field that one
+    piece lacks reads as missing."""
+    parts = list(parts)
+    names = sorted(set().union(*parts)) if parts else []
+    out = {}
+    for k in names:
+        got = [p.get(k, (math.inf, math.inf, False, False)) for p in parts]
+        out[k] = (max(g[0] for g in got), max(g[1] for g in got),
+                  all(g[2] for g in got), all(g[3] for g in got))
+    return out
+
+
+def errs_from_maxima(maxima: dict) -> dict:
+    """{field: error} as `field_errs` defines it, from `field_maxima`."""
+    errs = {}
+    for k, (diff, scale, equal, finite) in maxima.items():
+        if equal:
+            errs[k] = 0.0
+        elif not finite:
+            errs[k] = math.inf
+        else:
+            errs[k] = diff / max(scale, TINY)
+    return errs
+
+
 def field_errs(port: dict, ref: dict, device) -> dict:
     """{field: max|port - ref| / scale} (0 where both are equal, inf where
     either side holds a value that is not finite or a field is missing),
     the scale being the largest magnitude of the reference's field; `port`
     may sit on the host, each field goes to `device`."""
-    errs = {}
-    for k in sorted(set(port) | set(ref)):
-        if k not in port or k not in ref:
-            errs[k] = math.inf
-            continue
-        a = port[k].to(device)
-        b = ref[k].to(device)
-        if a.shape != b.shape:
-            errs[k] = math.inf
-        elif torch.equal(a, b):
-            errs[k] = 0.0
-        elif not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
-            errs[k] = math.inf
-        else:
-            diff = float((a.double() - b.double()).abs().max())
-            errs[k] = diff / max(float(b.double().abs().max()), TINY)
-        del a, b
-    return errs
+    return errs_from_maxima(field_maxima(port, ref, device))
 
 
 def state_numbers(errs: dict) -> dict:

@@ -4,7 +4,9 @@
         [--control-seeds 3] [--precisions tf32,bfloat16]
 
 For each seed, one run of one period (the window at its shortest, with the
-cell's traffic and sizes) and its check: each number of the cell's
+cell's traffic and sizes, on as many cards as the cell asks for, through
+`harness.measure`, so that a cell of several cards is followed in ringed
+tiles and its controls too) and its check: each number of the cell's
 limits for the port, the lower readings.  For the first `--control-seeds` seeds
 also the control: the reference in each lower precision, followed from the
 same copy of the port's state, held to the float32 reference by the same
@@ -33,15 +35,16 @@ def main(argv=None) -> int:
     cell = spec.workload(bench, args.workload)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = cell["config_spec"]["allocator"]
     import torch
-    if not torch.cuda.is_available():
-        print("the control runs on the card", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
+        print(f"the control runs on {cell['chips']} card(s)", file=sys.stderr)
         return 3
     from port_bench import harness
+    devices = [f"cuda:{i}" for i in range(cell["chips"])]
     precisions = [x for x in args.precisions.split(",") if x]
     lower, upper, verdicts, sound = {}, {}, {}, True
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
-        res = harness.run(cell, bench, seed, 0.0, False, "cuda:0", time.perf_counter(),
-                          precisions=precisions if i < args.control_seeds else ())
+        res = harness.measure(cell, bench, seed, 0.0, False, devices, time.perf_counter(),
+                              precisions=precisions if i < args.control_seeds else ())
         numbers = res["numbers"]
         line = {"seed": seed, "correct": res["correct"],
                 **{k: v for k, v in numbers.items() if k != "top_fields"},

@@ -1,23 +1,38 @@
 """One run of a cell: set-up, the measured window, the check, the records
 that the metrics' readers read.
 
-`run` drives the PyTorch port (`wrfchem_arc_interactions_tpu_torch`) on
-the device it is given; `port_bench.run` gives it the card and refuses to
-run without one, and the CPU tests give it the CPU at small shapes.  From
-the port it takes the system under test (`Simulation`, `make_case`, the
-namelist) and its counters (`phase_times`, the allocator's statistics,
-the profiler's kernels); everything it compares against comes from this
-folder.
+`measure` drives the PyTorch port (`wrfchem_arc_interactions_tpu_torch`)
+on the devices it is given; `port_bench.run` gives it the cards and
+refuses to run without them, and the CPU tests give it the CPU at small
+shapes.  From the port it takes the system under test (`Simulation`,
+`make_case`, the namelist, and for a cell of several cards
+`parallel.launch.spawn` and `parallel.mesh.make_mesh`) and its counters
+(`phase_times`, the allocator's statistics, the profiler's kernels);
+everything it compares against comes from this folder.
+
+A one-card cell runs in this process (`run`).  A cell of several runs one
+rank a device (`_rank`): every rank builds the global case from the seed
+on its card, the `Simulation` keeps the rank's block, and the window's
+periods each close with the rank's synchronisation and a barrier, the
+last one chosen by rank 0 for all, so that rank 0's clock times the
+slowest rank; with ``--trace 1`` every rank profiles the same periods.
+After the window each rank checks its block in ringed tiles
+(`port_bench.tiles`), and `_mesh_result` joins the ranks' parts: the
+whole domain's numbers, rank 0's records with the global shape, the
+largest peak over the cards, and the traced busy, window and kernel
+seconds summed over the cards.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
+import resource
 import subprocess
 import sys
 import time
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +41,10 @@ from port_bench import case, check, spec, window
 from port_bench import trace as trace_mod
 
 ALLOCATOR_COUNTS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+# a run of several ranks, and each collective in it, ends within this; a
+# checkout's first run builds the kernels and may take 1,200 s
+MESH_TIMEOUT_S = 1200.0
 
 
 def _say(msg: str) -> None:
@@ -115,10 +134,83 @@ def follow(cell: dict, seed: int, device, snap_state: dict, snap_step: int, fina
     return out
 
 
+def _window(sim, snap, counted, cell: dict, seconds: float, trace: bool, device,
+            sync: Callable[[], None], agree=None) -> tuple:
+    """The measured window from the run's set-up on: whole periods timed
+    (or, with `trace`, profiled and then phase-timed), each closed by
+    `sync`; `agree` shares the choice of the last period over the ranks of
+    a mesh (`window.timed_periods`).  Returns (the records of the window,
+    the breakdown or None)."""
+    cuda = device.type == "cuda"
+    traffic = cell["traffic"]
+    period_steps, follow_steps = traffic["period_steps"], traffic["check_steps"]
+
+    def period(last, phase_timing=False):
+        window.run_period(sim, period_steps, follow_steps, snap if last else None,
+                          phase_timing)
+
+    first = sim.step_idx
+    most = window.max_periods((counted.chem_every, counted.rad_every), first, period_steps,
+                              traffic["max_periods"])
+    records: dict = {}
+    if not trace:
+        each, wall = window.timed_periods(period, sync, seconds, most, agree=agree)
+        records["window"] = dict(_calls(counted, first, len(each) * period_steps),
+                                 periods=len(each), seconds=wall, period_s=each)
+        return records, None
+    from torch.profiler import ProfilerActivity, profile, record_function
+    n_prof = traffic["traced_periods"]
+    if 2 * n_prof > most:
+        raise ValueError(f"{cell['name']}: {2 * n_prof} traced periods, but only {most} "
+                         "hold the same calls")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        with record_function(trace_mod.WINDOW):
+            for _ in range(n_prof):
+                period(False)
+                sync()
+    t_red = time.perf_counter()
+    reduced = trace_mod.reduce(trace_mod.events(prof))
+    del prof
+    _say(f"trace reduced in {time.perf_counter() - t_red:.1f} s")
+    reduced.update(_calls(counted, first, n_prof * period_steps))
+    records["trace"] = reduced
+    breakdown = {"device_ops": reduced["device_ops"], "idle_gaps": reduced["idle_gaps"]}
+    # the phases: every executable closed by a synchronisation
+    first_phase = sim.step_idx
+    for i in range(n_prof):
+        period(i == n_prof - 1, phase_timing=True)
+    sync()
+    records["phases"] = dict(_calls(counted, first_phase, n_prof * period_steps),
+                             **{f"{k}_s": v for k, v in sim.phase_times.items()})
+    return records, breakdown
+
+
+def _result(cell: dict, bench: dict, trace: bool, records: dict, numbers: dict,
+            device_info: dict, breakdown) -> dict:
+    """The result line's object (``correct`` .. ``checks``), then under
+    ``records`` and ``numbers`` what the metrics and the verdict were read
+    from."""
+    limits = cell["limits"]
+    correct = check.verdict(numbers, limits)
+    metrics = spec.read_metrics(bench, cell["name"], trace, records)
+    steps_done = sum(records.get(k, {}).get("steps", 0)
+                     for k in ("window", "trace", "phases"))
+    result = {"correct": correct, "attempted": steps_done,
+              "failed": 0 if correct else steps_done, "metrics": metrics,
+              "device": device_info}
+    if breakdown is not None:
+        result["breakdown"] = breakdown
+    result["checks"] = {k: {"value": numbers[k], "limit": v["limit"]} for k, v in limits.items()}
+    result["records"] = records
+    result["numbers"] = numbers
+    return result
+
+
 def run(cell: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
         t_start: float, precisions: Sequence[str] = ()) -> dict:
-    """One run of `cell`: the result line's object, and under ``records``
-    what the metrics were read from."""
+    """One run of a one-card `cell`: the result line's object, and under
+    ``records`` what the metrics were read from."""
     from wrfchem_arc_interactions_tpu_torch.config import namelist
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
@@ -154,52 +246,11 @@ def run(cell: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
 
     # the check's copy buffers: allocated after set-up, before the window
     snap = window.Snapshot(sim.state, device)
-    period_steps, follow_steps = traffic["period_steps"], traffic["check_steps"]
-
-    def period(last, phase_timing=False):
-        window.run_period(sim, period_steps, follow_steps, snap if last else None,
-                          phase_timing)
-
-    first = sim.step_idx
-    most = window.max_periods((counted.chem_every, counted.rad_every), first, period_steps,
-                              traffic["max_periods"])
+    follow_steps = traffic["check_steps"]
     alloc0 = _alloc_stats(device)
-    records = {"cell": cell["name"], "shape": [cfg.domain.nx, cfg.domain.ny, cfg.domain.nz],
-               "scalars": counted.scalars(),
-               "bins": case.aerosol_bins(cfg_spec), "chemdt_s": cfg.chem.chemdt_s,
-               "gas_chem": cfg.chem.gaschem_onoff and "cbmz" in cfg.chem.chem_opt.value,
-               "state_bytes": state_bytes, "setup_s": setup_s}
-    breakdown = None
-    if not trace:
-        each, wall = window.timed_periods(period, sim.sync, seconds, most)
-        records["window"] = dict(_calls(counted, first, len(each) * period_steps),
-                                 periods=len(each), seconds=wall, period_s=each)
-    else:
-        from torch.profiler import ProfilerActivity, profile, record_function
-        n_prof = traffic["traced_periods"]
-        if 2 * n_prof > most:
-            raise ValueError(f"{cell['name']}: {2 * n_prof} traced periods, but only {most} "
-                             "hold the same calls")
-        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-        with profile(activities=activities) as prof:
-            with record_function(trace_mod.WINDOW):
-                for _ in range(n_prof):
-                    period(False)
-                    sim.sync()
-        t_red = time.perf_counter()
-        reduced = trace_mod.reduce(trace_mod.events(prof))
-        del prof
-        _say(f"trace reduced in {time.perf_counter() - t_red:.1f} s")
-        reduced.update(_calls(counted, first, n_prof * period_steps))
-        records["trace"] = reduced
-        breakdown = {"device_ops": reduced["device_ops"], "idle_gaps": reduced["idle_gaps"]}
-        # the phases: every executable closed by a synchronisation
-        first_phase = sim.step_idx
-        for i in range(n_prof):
-            period(i == n_prof - 1, phase_timing=True)
-        sim.sync()
-        records["phases"] = dict(_calls(counted, first_phase, n_prof * period_steps),
-                                 **{f"{k}_s": v for k, v in sim.phase_times.items()})
+    records = _records(cell, cfg, counted, state_bytes, setup_s)
+    measured, breakdown = _window(sim, snap, counted, cell, seconds, trace, device, sim.sync)
+    records.update(measured)
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
     records["peak_bytes"] = peak
     alloc1 = _alloc_stats(device)
@@ -208,12 +259,12 @@ def run(cell: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
         records["main_peak_bytes"] = _main_peak(sim, device)
 
     # the check: the port's final state and the copy, then the reference
-    final = {k: v.to("cpu") for k, v in sim.state.items()}
+    final = _final_state(sim)
     snap_state, snap_step = snap.state(), snap.step
     if snap_step != sim.step_idx - follow_steps:
         raise RuntimeError(f"the copy is of step {snap_step}, the window ended at "
                            f"{sim.step_idx}")
-    del sim, period
+    del sim
     gc.collect()          # the Simulation's steppers close over it: a cycle
     if cuda:
         torch.cuda.empty_cache()
@@ -222,20 +273,226 @@ def run(cell: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
     numbers = follow(cell, seed, device, snap_state, snap_step, final, start_stats,
                      precisions)
     del final, snap
-    limits = cell["limits"]
-    correct = check.verdict(numbers, limits)
-    metrics = spec.read_metrics(bench, cell["name"], trace, records)
-    steps_done = sum(records.get(k, {}).get("steps", 0)
-                     for k in ("window", "trace", "phases"))
-    result = {"correct": correct, "attempted": steps_done,
-              "failed": 0 if correct else steps_done, "metrics": metrics,
-              "device": _device(device, peak, records.get("trace"))}
-    if breakdown is not None:
-        result["breakdown"] = breakdown
-    result["checks"] = {k: {"value": numbers[k], "limit": v["limit"]} for k, v in limits.items()}
-    result["records"] = records
-    result["numbers"] = numbers
-    return result
+    return _result(cell, bench, trace, records, numbers,
+                   _device(device, peak, records.get("trace")), breakdown)
+
+
+def _records(cell: dict, cfg, counted, state_bytes: int, setup_s: float) -> dict:
+    """What the metrics' readers read of the configuration and the set-up:
+    the global shape (nx, ny, nz) and state bytes, the scalars, bins and
+    chem step."""
+    return {"cell": cell["name"], "shape": [cfg.domain.nx, cfg.domain.ny, cfg.domain.nz],
+            "scalars": counted.scalars(),
+            "bins": case.aerosol_bins(cell["config_spec"]), "chemdt_s": cfg.chem.chemdt_s,
+            "gas_chem": cfg.chem.gaschem_onoff and "cbmz" in cfg.chem.chem_opt.value,
+            "state_bytes": state_bytes, "setup_s": setup_s}
+
+
+def measure(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
+            devices: Sequence[str], t_start: float, precisions: Sequence[str] = (),
+            rank_init: Optional[Callable[[int], None]] = None) -> dict:
+    """One run of `cell` on `devices`, one a chip: `run` in this process
+    for a one-card cell; for a cell of several, one rank a device
+    (`parallel.launch.spawn`: NCCL between distinct cards, gloo on the
+    host or where ranks share a card), each running `_rank`, and their
+    parts joined here (`_mesh_result`).  `rank_init(rank)`, where given,
+    runs first in each rank (the tests plant faults with it).  Raises
+    where a rank raises."""
+    if len(devices) != cell["chips"]:
+        raise ValueError(f"{cell['name']} runs on {cell['chips']} devices, not {len(devices)}")
+    if cell["chips"] == 1:
+        return run(cell, bench, seed, seconds, trace, devices[0], t_start, precisions)
+    spec.mesh_shape(cell)
+    from wrfchem_arc_interactions_tpu_torch.parallel import launch
+    cards = [torch.device(d) for d in devices]
+    nccl = all(d.type == "cuda" for d in cards) and len(set(devices)) == len(devices)
+    parts = launch.spawn(_rank, len(devices), "nccl" if nccl else "gloo", list(devices),
+                         args=(cell, bench, seed, seconds, trace, t_start, tuple(precisions),
+                               rank_init),
+                         timeout_s=MESH_TIMEOUT_S)
+    return _mesh_result(cell, bench, trace, precisions, parts)
+
+
+def _final_state(sim) -> dict:
+    """The port's state at the window's close, on the host."""
+    return {k: v.to("cpu") for k, v in sim.state.items()}
+
+
+def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: float,
+          trace: bool, t_start: float, precisions: tuple, rank_init) -> dict:
+    """One rank of a cell of several cards: this rank's block of the
+    global case, the window on the mesh, then the check of the block in
+    ringed tiles (`tiles`).  Returns this rank's part of the run."""
+    if rank_init is not None:
+        rank_init(rank)
+    import torch.distributed as dist
+    from wrfchem_arc_interactions_tpu_torch.config import namelist
+    from wrfchem_arc_interactions_tpu_torch.models import ideal
+    from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh
+    from port_bench import guard, tiles
+    from port_bench.reference.runner import Model
+    from port_bench.reference.wrf.config import namelist as ref_namelist
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    torch.set_num_threads(max(1, min(4, (os.cpu_count() or 1) // cell["chips"])))
+    my, mx = spec.mesh_shape(cell)
+    mesh = make_mesh(my, mx, device=device)
+    # the harness's own messages go between the hosts' memories
+    host = None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+
+    def sync():
+        sim.sync()
+        dist.barrier(group=host)
+
+    def agree(last: bool) -> bool:
+        flag = torch.tensor([int(last)])
+        dist.broadcast(flag, src=0, group=host)
+        return bool(flag.item())
+
+    cfg_spec, traffic = cell["config_spec"], cell["traffic"]
+    counted = Model(case.build_config(ref_namelist, cfg_spec))
+    cfg = case.build_config(namelist, cfg_spec)
+    if cuda:
+        torch.cuda.init()
+    # set-up: every rank builds the global case from the seed; the
+    # Simulation keeps this rank's block
+    t_case = time.perf_counter()
+    grid, state = ideal.make_case(cfg, cfg_spec["case"], device=device, **cfg_spec["case_args"])
+    state = case.seeded_state(state, cfg_spec, traffic, seed)
+    excluded_s, start_stats = 0.0, None
+    if rank == 0:
+        t_check = time.perf_counter()
+        start_stats = check.field_stats(state, grid)
+        excluded_s = time.perf_counter() - t_check
+    state_bytes = sum(v.numel() * v.element_size() for v in state.values())
+    t_sim = time.perf_counter()
+    sim = Simulation(cfg, grid, state, mesh=mesh)
+    del grid, state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        # the block's peak: the global inputs that every rank held are gone
+        torch.cuda.reset_peak_memory_stats(device)
+    t_warm_0 = time.perf_counter()
+    sim.advance(traffic["warmup_steps"])
+    sync()
+    t_warm = time.perf_counter()
+    setup_s = t_warm - t_start - excluded_s
+    setup_phases = {"start_s": t_case - t_start, "case_s": t_sim - t_case - excluded_s,
+                    "place_s": t_warm_0 - t_sim, "warmup_s": t_warm - t_warm_0}
+    _say(f"rank {rank}: set-up {setup_s:.2f} s (step {sim.step_idx}) {setup_phases}")
+
+    snap = window.Snapshot(sim.state, device)
+    follow_steps = traffic["check_steps"]
+    alloc0 = _alloc_stats(device)
+    records = _records(cell, cfg, counted, state_bytes, setup_s)
+    measured, breakdown = _window(sim, snap, counted, cell, seconds, trace, device, sync,
+                                  agree)
+    records.update(measured)
+    records["peak_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else None
+    alloc1 = _alloc_stats(device)
+    records["allocator"] = {k: alloc1[k] - alloc0[k] for k in alloc1}
+    if trace and cuda:
+        records["main_peak_bytes"] = _main_peak(sim, device)
+    found = guard.jax_modules()
+    if found:
+        raise RuntimeError(f"rank {rank}: JAX or the JAX package is loaded: {found}")
+
+    # the check: this rank's final block and copy, ringed from the others'
+    final = _final_state(sim)
+    snap_state, snap_step = snap.state(), snap.step
+    if snap_step != sim.step_idx - follow_steps:
+        raise RuntimeError(f"the copy is of step {snap_step}, the window ended at "
+                           f"{sim.step_idx}")
+    ys, xs = mesh.window(cfg.domain.ny, cfg.domain.nx)
+    del sim
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref_cfg = case.build_config(ref_namelist, cfg_spec)
+    model = Model(ref_cfg)
+    ref_grid, ref_state = model.case(cfg_spec["case"], device, **cfg_spec["case_args"])
+    ref_state = case.seeded_state(ref_state, cfg_spec, traffic, seed)
+    start = None
+    if rank == 0:
+        start = check.stats_err(start_stats, check.field_stats(ref_state, ref_grid))
+    del ref_state
+    if cuda:
+        torch.cuda.empty_cache()
+    t_ext = time.perf_counter()
+    ext = tiles.extend(snap_state, (my, mx), rank, tiles.RING, group=host)
+    del snap_state, snap
+    by, bx = ys.stop - ys.start, xs.stop - xs.start
+    plan = tiles.plan(by, bx, tiles.RING, tiles.max_columns(
+        device, state_bytes // (cfg.domain.nx * cfg.domain.ny)))
+    t_tiles = time.perf_counter()
+    maxima = tiles.follow(model, ref_grid, ext, (ys.start, xs.start), plan, tiles.RING,
+                          snap_step, follow_steps, final, device,
+                          [Model(ref_cfg, precision=p) for p in precisions])
+    t_end = time.perf_counter()
+    reference_s = t_end - t0
+    phases = {"case_s": t_ext - t0, "ring_s": t_tiles - t_ext, "tiles_s": t_end - t_tiles}
+    _say(f"rank {rank}: {len(plan)} tiles followed; check {reference_s:.1f} s {phases}")
+    return {"records": records, "breakdown": breakdown, "start": start, "maxima": maxima,
+            "tiles": len(plan), "reference_s": reference_s, "check_phases": phases,
+            "setup_phases": setup_phases,
+            "device": _device(device, None, None),
+            "host_peak_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+def _mesh_result(cell: dict, bench: dict, trace: bool, precisions: Sequence[str],
+                 parts: list) -> dict:
+    """The ranks' parts joined into one run's result: the numbers of the
+    whole domain (each field's maxima over every rank's tiles, then
+    divided; rank 0's start), rank 0's records with the global shape,
+    the largest peak over the cards, and with `trace` the busy, window and
+    kernel seconds summed over the cards (card-seconds, against which the
+    metrics' counts of the global shape are read)."""
+    from port_bench import tiles
+    n = len(parts)
+    r0 = parts[0]
+    records = r0["records"]
+    peaks = [p["records"]["peak_bytes"] for p in parts]
+    records["peak_bytes"] = None if None in peaks else max(peaks)
+    if "main_peak_bytes" in records:
+        records["main_peak_bytes"] = max(p["records"]["main_peak_bytes"] for p in parts)
+    if "trace" in records:
+        t = records["trace"]
+        t["busy_s"] = sum(p["records"]["trace"]["busy_s"] for p in parts)
+        t["window_s"] = sum(p["records"]["trace"]["window_s"] for p in parts)
+        kernels: dict = {}
+        for p in parts:
+            for name, (calls, secs) in p["records"]["trace"]["kernels"].items():
+                c0, s0 = kernels.get(name, (0, 0.0))
+                kernels[name] = (c0 + calls, s0 + secs)
+        t["kernels"] = kernels
+        t["cards"] = n
+    records["ranks"] = [{"peak_bytes": p["records"]["peak_bytes"],
+                         "host_peak_bytes": p["host_peak_bytes"], "tiles": p["tiles"],
+                         "reference_s": p["reference_s"], "check_phases": p["check_phases"],
+                         "setup_s": p["records"]["setup_s"],
+                         "setup_phases": p["setup_phases"]} for p in parts]
+    errs = check.errs_from_maxima(check.merge_maxima(p["maxima"]["state"] for p in parts))
+    start_err, start_where = r0["start"]
+    numbers = {"start_err": start_err, "start_field": start_where,
+               **check.state_numbers(errs), "fields": len(errs),
+               "reference_s": max(p["reference_s"] for p in parts),
+               "top_fields": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+               "tiles": sum(p["tiles"] for p in parts), "ring": tiles.RING}
+    for prec in precisions:
+        low = check.errs_from_maxima(check.merge_maxima(p["maxima"][prec] for p in parts))
+        control = {"start_err": 0.0, **check.state_numbers(low)}
+        for k, v in control.items():
+            numbers[f"control.{prec}.{k}"] = v
+        numbers[f"control.{prec}.correct"] = check.verdict(control, cell["limits"])
+    device_info = dict(r0["device"], count=n, memory_peak_bytes=records["peak_bytes"])
+    if "trace" in records:
+        device_info["busy_s"] = records["trace"]["busy_s"] / n
+        device_info["window_s"] = records["trace"]["window_s"] / n
+    return _result(cell, bench, trace, records, numbers, device_info, r0["breakdown"])
 
 
 def _power_limit_w(index: int):

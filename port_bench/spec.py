@@ -5,8 +5,10 @@ metric sits in files of its own; this module finds them from the names in
 `BENCHMARK.json`, so that a later change adds a cell, a configuration or a
 metric by adding files and entries, and edits no code:
 
-- ``configs/<config>.json``: the namelist, the ideal case, the seeded
-  fields, the allocator setting, and what was cut from the deployment;
+- ``configs/<config>.json``: the namelist (its ``parallel`` group, where
+  there is one, is the cell's mesh of cards: `mesh_shape`), the ideal
+  case, the seeded fields, the allocator setting, and what was cut from
+  the deployment;
 - ``traffic/<traffic>.json``: the traffic mix: the warm-up, the alarm
   period, the steps the check follows, the seeded perturbation;
 - ``limits/<cell>.json``: the limit of each number the check compares in
@@ -23,7 +25,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -50,6 +52,19 @@ def workload(bench: dict, name: str, here: str = HERE) -> dict:
     cell["traffic"] = _load_json(os.path.join(here, "traffic", f"{entry['traffic']}.json"))
     cell["limits"] = _load_json(os.path.join(here, "limits", f"{name}.json"))
     return cell
+
+
+def mesh_shape(cell: dict) -> Tuple[int, int]:
+    """(mesh_y, mesh_x) of the cell's configuration (its ``namelist``'s
+    ``parallel`` group, 1 x 1 without one): one block a card, so the mesh
+    has to hold exactly the cell's ``chips``."""
+    par = cell["config_spec"]["namelist"].get("parallel", {})
+    my, mx = int(par.get("mesh_y", 1)), int(par.get("mesh_x", 1))
+    if my * mx != cell["chips"]:
+        raise ValueError(f"{cell['name']}: the configuration's mesh is {my} x {mx} = "
+                         f"{my * mx} blocks, but the cell asks for {cell['chips']} "
+                         "card(s): one block a card")
+    return my, mx
 
 
 def config(name: str, here: str = HERE) -> dict:

@@ -75,7 +75,8 @@ def run_period(sim, period_steps: int, follow: int, snapshot: Optional[Snapshot]
 
 
 def timed_periods(period: Callable[[bool], None], sync: Callable[[], None], seconds: float,
-                  max_periods: int, clock: Callable[[], float] = time.perf_counter
+                  max_periods: int, clock: Callable[[], float] = time.perf_counter,
+                  agree: Optional[Callable[[bool], bool]] = None
                   ) -> Tuple[List[float], float]:
     """Run ``period(last)`` (then `sync`) until the window closes at the
     period boundary nearest to `seconds`, or after `max_periods`: (each
@@ -84,7 +85,10 @@ def timed_periods(period: Callable[[bool], None], sync: Callable[[], None], seco
     true where the boundary after it, predicted from the mean period so
     far, lies nearer to `seconds` than the one after that.  The first
     period's length is not known before it ran, so a window of a positive
-    `seconds` holds two periods at least, where `max_periods` allows."""
+    `seconds` holds two periods at least, where `max_periods` allows.
+    On a mesh every rank runs this loop, and `agree` turns each rank's
+    `last` into one that all ranks share (rank 0's), so that all run the
+    same periods."""
     if max_periods < 1:
         raise ValueError("a window needs at least one period")
     t0 = last_t = clock()
@@ -97,6 +101,8 @@ def timed_periods(period: Callable[[bool], None], sync: Callable[[], None], seco
             last = False
         else:
             last = elapsed + 1.5 * elapsed / n >= seconds
+        if agree is not None:
+            last = agree(last)
         period(last)
         sync()
         now = clock()
