@@ -1,17 +1,20 @@
 """The yardstick's counts: the least bytes and float operations that each of
-the port's four kernels needs for a call, the published peaks of the card,
+the port's five kernels needs for a call, the published peaks of the card,
 and the least time of a whole model step of a configuration.
 
-Frozen here from the port's `chip_smoke.py` (`_bound`,
-`_adv_bound`, `_mie_bound` with `MIE_OPS_PER_ELEMENT`, `_tracers_bound` with
-`TRACER_OPS`, the ROS2 bytes of `kernel_ros2`) so that a later change to the
-program cannot change what its kernels are measured against.  Every count
-is of what the algorithm needs for the call's shapes: each input byte read
-once and each output byte written once, whatever a kernel reads again.
-Times are in seconds.
+Frozen here from the port's `chip_smoke.py` (`_bound`, `_adv_bound`,
+`_mie_bound` with `MIE_OPS_PER_ELEMENT`, `_tracers_bound` with
+`TRACER_OPS`, the ROS2 bytes of `kernel_ros2`, `_diffusion_bound`) and from
+its `utils/device.py` (`PASS_ELEMENTS`, `pass_slices`: the diffusion's
+passes) so that a later change to the program cannot change what its
+kernels are measured against.  Every count is of what the algorithm needs
+for the call's shapes: each input byte read once and each output byte
+written once, whatever a kernel reads again.  Times are in seconds.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at its 700 W limit
 F32_FLOP_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -39,6 +42,12 @@ ROS2_FLOPS_PER_SUBSTEP = 7499
 ROS2_SUBSTEP_S = 30.0         # n_sub = ceil(chemdt / 30 s)
 
 PAD = 3                       # the scalars' halo in the padded stacks
+
+# elements of the largest temporary of one pass of the scalars' diffusion:
+# the stack of scalars goes through diffuse_scalars in passes of at most
+# this many elements of the state (config 5's 500x500x60 block, 107
+# scalars: 6 passes, 5 of 18 and one of 17)
+DIFFUSION_PASS_ELEMENTS = 1 << 28
 
 
 def bound(nbytes: float, ops: float) -> float:
@@ -86,16 +95,38 @@ def ros2_bytes_ops(cells: int, n_sub: int):
             ROS2_FLOPS_PER_SUBSTEP * n_sub * cells)
 
 
+def diffusion_bytes_ops(nt: int, nz: int, ny: int, nx: int, vdiff: bool):
+    """diffuse_scalars, one pass of `nt` scalars: the padded slice and K
+    read once, dz2 once with the vertical term (`vdiff`), the tendency
+    written once; ~20 float operations a cell (the K faces 8, the
+    Laplacian 11, the vertical term 5)."""
+    padded = nz * (ny + 2 * PAD) * (nx + 2 * PAD)
+    cells = nz * ny * nx
+    nbytes = F32 * ((nt + 1) * padded + (cells if vdiff else 0) + nt * cells)
+    return nbytes, (24 if vdiff else 19) * nt * cells
+
+
+def diffusion_passes(scalars: int, cells: int) -> list:
+    """The scalars of each pass of the diffusion's stack: as few passes as
+    keep a pass within `DIFFUSION_PASS_ELEMENTS`, of equal length but the
+    last."""
+    passes = max(1, -(-scalars * cells // DIFFUSION_PASS_ELEMENTS))
+    per = -(-scalars // passes)
+    return [min(per, scalars - a) for a in range(0, scalars, per)]
+
+
 def kernel_bounds(shape, scalars: int, bins: int, ros2_n_sub: int, steps: int,
-                  chem_calls: int) -> dict:
-    """{kernel: least seconds} of the four kernels' calls in `steps` main
+                  chem_calls: int, vdiff: Optional[bool] = None) -> dict:
+    """{kernel: least seconds} of the kernels' calls in `steps` main
     steps and `chem_calls` chem calls of a configuration at `shape` (nx,
     ny, nz) with `scalars` advected scalars and `bins` aerosol bins: per
     step three RK stages, each one K1 call (theta) and one K4 call over the
     scalars (the last stage with the positive-definite limiter); per chem
     call one Mie evaluation of every bin, band and cell and, with gas
     chemistry (`ros2_n_sub` substeps, 0 without), one ROS2 integration of
-    every cell."""
+    every cell.  With `vdiff` given (the vertical term on or off), also the
+    scalars' diffusion: per step one diffuse_scalars call a pass
+    (`diffusion_passes`)."""
     nx, ny, nz = shape
     cells = nx * ny * nz
     out = {
@@ -106,6 +137,10 @@ def kernel_bounds(shape, scalars: int, bins: int, ros2_n_sub: int, steps: int,
     }
     if ros2_n_sub:
         out["ros2_integrate"] = chem_calls * bound(*ros2_bytes_ops(cells, ros2_n_sub))
+    if vdiff is not None:
+        out["diffuse_scalars"] = steps * sum(
+            bound(*diffusion_bytes_ops(nt, nz, ny, nx, vdiff))
+            for nt in diffusion_passes(scalars, cells))
     return out
 
 
@@ -113,8 +148,9 @@ def window_least_s(shape, scalars: int, bins: int, ros2_n_sub: int, state_bytes:
                    steps: int, chem_calls: int, rad_calls: int) -> float:
     """The least time of a window's work, counted from the configuration
     and the window's alarms and never from the launches observed: the four
-    kernels' bounds (`kernel_bounds`), the state read and written once a
-    main step, and the state read once a rad call."""
+    kernels' bounds of PR 17's count (`kernel_bounds` without the
+    diffusion, so that the readings stay comparable), the state read and
+    written once a main step, and the state read once a rad call."""
     kernels = kernel_bounds(shape, scalars, bins, ros2_n_sub, steps, chem_calls)
     state = state_bytes / HBM_BYTES_PER_S
     return sum(kernels.values()) + steps * 2 * state + rad_calls * state

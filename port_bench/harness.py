@@ -41,6 +41,8 @@ from port_bench import case, check, spec, window
 from port_bench import trace as trace_mod
 
 ALLOCATOR_COUNTS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+SPAN_BLOCKS = 2          # the blocks of traced periods `_spans` runs
+SPAN_SUMS = ("device_s", "self_s", "kernel_s", "idle_s")     # card-seconds on a mesh
 
 # a run of several ranks, and each collective in it, ends within this; a
 # checkout's first run builds the kernels and may take 1,200 s
@@ -160,8 +162,10 @@ def _window(sim, snap, counted, cell: dict, seconds: float, trace: bool, device,
         return records, None
     from torch.profiler import ProfilerActivity, profile, record_function
     n_prof = traffic["traced_periods"]
-    if 2 * n_prof > most:
-        raise ValueError(f"{cell['name']}: {2 * n_prof} traced periods, but only {most} "
+    # the profiled and the phase-timed periods here, the spans' two blocks
+    # after the check's copy (`_spans`)
+    if 4 * n_prof > most:
+        raise ValueError(f"{cell['name']}: {4 * n_prof} traced periods, but only {most} "
                          "hold the same calls")
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
@@ -192,16 +196,19 @@ def _result(cell: dict, bench: dict, trace: bool, records: dict, numbers: dict,
     ``records`` and ``numbers`` what the metrics and the verdict were read
     from."""
     limits = cell["limits"]
-    correct = check.verdict(numbers, limits)
+    # a probe's run without the check (`measure(check=False)`) has no numbers
+    correct = check.verdict(numbers, limits) if numbers else None
     metrics = spec.read_metrics(bench, cell["name"], trace, records)
     steps_done = sum(records.get(k, {}).get("steps", 0)
                      for k in ("window", "trace", "phases"))
+    steps_done += SPAN_BLOCKS * records.get("spans", {}).get("steps", 0)
     result = {"correct": correct, "attempted": steps_done,
               "failed": 0 if correct else steps_done, "metrics": metrics,
               "device": device_info}
     if breakdown is not None:
         result["breakdown"] = breakdown
-    result["checks"] = {k: {"value": numbers[k], "limit": v["limit"]} for k, v in limits.items()}
+    result["checks"] = ({k: {"value": numbers[k], "limit": v["limit"]}
+                         for k, v in limits.items()} if numbers else {})
     result["records"] = records
     result["numbers"] = numbers
     return result
@@ -264,6 +271,8 @@ def run(cell: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
     if snap_step != sim.step_idx - follow_steps:
         raise RuntimeError(f"the copy is of step {snap_step}, the window ended at "
                            f"{sim.step_idx}")
+    if trace:
+        records["spans"] = _spans(sim, counted, cell, cuda, sim.sync)
     del sim
     gc.collect()          # the Simulation's steppers close over it: a cycle
     if cuda:
@@ -277,30 +286,66 @@ def run(cell: dict, bench: dict, seed: int, seconds: float, trace: bool, device,
                    _device(device, peak, records.get("trace")), breakdown)
 
 
+def _spans(sim, counted, cell: dict, cuda: bool, sync: Callable[[], None]) -> dict:
+    """The port's spans (`port_bench.spans.traced_blocks`) in two blocks of
+    the traffic's traced periods, after the window's and the check's copy
+    of its end, each period closed by `sync`: per span path the device
+    seconds of its spans, their self seconds, calls, steps and median host
+    lead (block (b), no profiler), and the launches, the kernels' device
+    seconds and the idle seconds of it and every span inside it (block
+    (a), profiled).
+    ``steps`` and the calls are one block's; ``cards`` 1 (`_mesh_result`
+    sums the seconds over the cards)."""
+    from port_bench import spans
+    traffic = cell["traffic"]
+    n, period_steps = traffic["traced_periods"], traffic["period_steps"]
+    first = sim.step_idx
+    blocks = spans.traced_blocks(sim, lambda: sim.advance(period_steps), n, cuda, sync)
+    a, b = blocks["a"], blocks["b"]
+    paths = {}
+    for path, row in b["spans"].items():
+        inside = spans.under(a["by_span"], path)
+        paths[path] = {"device_s": 1e-3 * row["device_ms"], "self_s": 1e-3 * row["self_ms"],
+                       "calls": row["count"], "steps": row["steps"],
+                       "lead_median_s": 1e-3 * row["lead_median_ms"],
+                       "launches": inside["launches"], "kernel_s": float(inside["device_s"]),
+                       "idle_s": float(inside["idle_s"])}
+    outside = a["by_span"].get(spans.UNATTRIBUTED, {})
+    return dict(_calls(counted, first, n * period_steps), periods=n, cards=1,
+                period_s=[a["period_s"], b["period_s"]], launches=a["launches"],
+                unattributed_launches=a["unattributed_launches"],
+                unattributed_idle_s=float(outside.get("idle_s", 0.0)), paths=paths)
+
+
 def _records(cell: dict, cfg, counted, state_bytes: int, setup_s: float) -> dict:
     """What the metrics' readers read of the configuration and the set-up:
-    the global shape (nx, ny, nz) and state bytes, the scalars, bins and
-    chem step."""
+    the global shape (nx, ny, nz) and state bytes, the scalars, bins, chem
+    step and vertical diffusion."""
     return {"cell": cell["name"], "shape": [cfg.domain.nx, cfg.domain.ny, cfg.domain.nz],
             "scalars": counted.scalars(),
             "bins": case.aerosol_bins(cell["config_spec"]), "chemdt_s": cfg.chem.chemdt_s,
+            "kvdif": cfg.dynamics.kvdif,
             "gas_chem": cfg.chem.gaschem_onoff and "cbmz" in cfg.chem.chem_opt.value,
             "state_bytes": state_bytes, "setup_s": setup_s}
 
 
 def measure(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
             devices: Sequence[str], t_start: float, precisions: Sequence[str] = (),
-            rank_init: Optional[Callable[[int], None]] = None) -> dict:
+            rank_init: Optional[Callable[[int], None]] = None, check: bool = True) -> dict:
     """One run of `cell` on `devices`, one a chip: `run` in this process
     for a one-card cell; for a cell of several, one rank a device
     (`parallel.launch.spawn`: NCCL between distinct cards, gloo on the
     host or where ranks share a card), each running `_rank`, and their
     parts joined here (`_mesh_result`).  `rank_init(rank)`, where given,
-    runs first in each rank (the tests plant faults with it).  Raises
-    where a rank raises."""
+    runs first in each rank (the tests plant faults with it).  Without
+    `check` (the mesh probe's spread, several cards only) the ranks stop
+    after the window, and the result has no numbers and ``correct``
+    None.  Raises where a rank raises."""
     if len(devices) != cell["chips"]:
         raise ValueError(f"{cell['name']} runs on {cell['chips']} devices, not {len(devices)}")
     if cell["chips"] == 1:
+        if not check:
+            raise ValueError("a one-card run always checks")
         return run(cell, bench, seed, seconds, trace, devices[0], t_start, precisions)
     spec.mesh_shape(cell)
     from wrfchem_arc_interactions_tpu_torch.parallel import launch
@@ -308,7 +353,7 @@ def measure(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
     nccl = all(d.type == "cuda" for d in cards) and len(set(devices)) == len(devices)
     parts = launch.spawn(_rank, len(devices), "nccl" if nccl else "gloo", list(devices),
                          args=(cell, bench, seed, seconds, trace, t_start, tuple(precisions),
-                               rank_init),
+                               rank_init, check),
                          timeout_s=MESH_TIMEOUT_S)
     return _mesh_result(cell, bench, trace, precisions, parts)
 
@@ -318,11 +363,26 @@ def _final_state(sim) -> dict:
     return {k: v.to("cpu") for k, v in sim.state.items()}
 
 
+def _periods(marks: list) -> list:
+    """Between each two of a rank's marks (own synchronisation done,
+    barrier left, step, the mesh's exchanges and bytes sent): the steps,
+    the seconds to its own synchronisation and in the barrier, and the
+    exchanges and bytes it sent.  In a traced run the second interval
+    also holds the profile's reduction."""
+    return [{"steps": s1 - s0, "own_s": o1 - r0, "barrier_s": r1 - o1,
+             "exchanges": e1 - e0, "bytes_sent": b1 - b0}
+            for (_, r0, s0, e0, b0), (o1, r1, s1, e1, b1) in zip(marks, marks[1:])]
+
+
 def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: float,
-          trace: bool, t_start: float, precisions: tuple, rank_init) -> dict:
+          trace: bool, t_start: float, precisions: tuple, rank_init,
+          check_run: bool = True) -> dict:
     """One rank of a cell of several cards: this rank's block of the
-    global case, the window on the mesh, then the check of the block in
-    ringed tiles (`tiles`).  Returns this rank's part of the run."""
+    global case, the window on the mesh, with ``--trace 1`` the spans'
+    blocks, then the check of the block in ringed tiles (`tiles`).
+    Returns this rank's part of the run: its records, each window
+    period's own and barrier seconds and mesh counts, and what its
+    threads did over the window."""
     if rank_init is not None:
         rank_init(rank)
     import torch.distributed as dist
@@ -330,7 +390,7 @@ def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: f
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
     from wrfchem_arc_interactions_tpu_torch.parallel.mesh import make_mesh
-    from port_bench import guard, tiles
+    from port_bench import guard, host as host_mod, tiles
     from port_bench.reference.runner import Model
     from port_bench.reference.wrf.config import namelist as ref_namelist
 
@@ -341,10 +401,14 @@ def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: f
     mesh = make_mesh(my, mx, device=device)
     # the harness's own messages go between the hosts' memories
     host = None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+    marks: list = []
 
     def sync():
         sim.sync()
+        t_own = time.perf_counter()
         dist.barrier(group=host)
+        marks.append((t_own, time.perf_counter(), sim.step_idx, mesh.exchanges,
+                      mesh.bytes_sent))
 
     def agree(last: bool) -> bool:
         flag = torch.tensor([int(last)])
@@ -388,8 +452,14 @@ def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: f
     follow_steps = traffic["check_steps"]
     alloc0 = _alloc_stats(device)
     records = _records(cell, cfg, counted, state_bytes, setup_s)
+    # the ranks start the window together; its periods are counted from here
+    sync()
+    first_mark = len(marks) - 1
+    host0 = host_mod.sample()
     measured, breakdown = _window(sim, snap, counted, cell, seconds, trace, device, sync,
                                   agree)
+    host_used = host_mod.used(host0, host_mod.sample())
+    periods = _periods(marks[first_mark:])
     records.update(measured)
     records["peak_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else None
     alloc1 = _alloc_stats(device)
@@ -406,20 +476,32 @@ def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: f
     if snap_step != sim.step_idx - follow_steps:
         raise RuntimeError(f"the copy is of step {snap_step}, the window ended at "
                            f"{sim.step_idx}")
+    if trace:
+        records["spans"] = _spans(sim, counted, cell, cuda, sync)
     ys, xs = mesh.window(cfg.domain.ny, cfg.domain.nx)
     del sim
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    part = {"records": records, "breakdown": breakdown, "periods": periods,
+            "host": host_used, "setup_phases": setup_phases,
+            "device": _device(device, None, None)}
+    if not check_run:
+        return dict(part, start=None, maxima=None, tiles=0, reference_s=0.0,
+                    check_phases={}, host_peak_bytes=_host_peak())
     t0 = time.perf_counter()
     ref_cfg = case.build_config(ref_namelist, cfg_spec)
     model = Model(ref_cfg)
-    ref_grid, ref_state = model.case(cfg_spec["case"], device, **cfg_spec["case_args"])
-    ref_state = case.seeded_state(ref_state, cfg_spec, traffic, seed)
     start = None
     if rank == 0:
+        # the start's statistics are rank 0's alone: only it builds the
+        # reference's whole case; the other ranks need its grid
+        ref_grid, ref_state = model.case(cfg_spec["case"], device, **cfg_spec["case_args"])
+        ref_state = case.seeded_state(ref_state, cfg_spec, traffic, seed)
         start = check.stats_err(start_stats, check.field_stats(ref_state, ref_grid))
-    del ref_state
+        del ref_state
+    else:
+        ref_grid = model.grid(cfg_spec["case"], device)
     if cuda:
         torch.cuda.empty_cache()
     t_ext = time.perf_counter()
@@ -436,11 +518,30 @@ def _rank(rank: int, device: str, cell: dict, bench: dict, seed: int, seconds: f
     reference_s = t_end - t0
     phases = {"case_s": t_ext - t0, "ring_s": t_tiles - t_ext, "tiles_s": t_end - t_tiles}
     _say(f"rank {rank}: {len(plan)} tiles followed; check {reference_s:.1f} s {phases}")
-    return {"records": records, "breakdown": breakdown, "start": start, "maxima": maxima,
-            "tiles": len(plan), "reference_s": reference_s, "check_phases": phases,
-            "setup_phases": setup_phases,
-            "device": _device(device, None, None),
-            "host_peak_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+    return dict(part, start=start, maxima=maxima, tiles=len(plan), reference_s=reference_s,
+                check_phases=phases, host_peak_bytes=_host_peak())
+
+
+def _host_peak() -> int:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _mesh_counts(parts: list) -> dict:
+    """The mesh's point-to-point messages (`Mesh.exchanges`) and bytes
+    (`Mesh.bytes_sent`) per step over the window's periods: summed over
+    the ranks, each rank's, and each period's sum over the ranks."""
+    ranks = []
+    for p in parts:
+        steps = sum(q["steps"] for q in p["periods"])
+        ranks.append({k + "_per_step": sum(q[k] for q in p["periods"]) / steps
+                      for k in ("exchanges", "bytes_sent")})
+    periods = [{"steps": qs[0]["steps"], **{k: sum(q[k] for q in qs)
+                                            for k in ("exchanges", "bytes_sent")}}
+               for qs in zip(*(p["periods"] for p in parts))]
+    return {"exchanges_per_step": sum(r["exchanges_per_step"] for r in ranks),
+            "bytes_sent_per_step": sum(r["bytes_sent_per_step"] for r in ranks),
+            "ranks": ranks, "periods": periods}
+
 
 
 def _mesh_result(cell: dict, bench: dict, trace: bool, precisions: Sequence[str],
@@ -448,12 +549,27 @@ def _mesh_result(cell: dict, bench: dict, trace: bool, precisions: Sequence[str]
     """The ranks' parts joined into one run's result: the numbers of the
     whole domain (each field's maxima over every rank's tiles, then
     divided; rank 0's start), rank 0's records with the global shape,
-    the largest peak over the cards, and with `trace` the busy, window and
-    kernel seconds summed over the cards (card-seconds, against which the
-    metrics' counts of the global shape are read)."""
+    the largest peak over the cards, the mesh's counts (`_mesh_counts`),
+    and with `trace` the busy, window and kernel seconds and each span
+    path's seconds summed over the cards (card-seconds, against which the
+    metrics' counts of the global shape are read); each rank's periods,
+    host and spans under ``ranks``."""
     from port_bench import tiles
     n = len(parts)
     r0 = parts[0]
+    ranks = [{"peak_bytes": p["records"]["peak_bytes"],
+              "host_peak_bytes": p["host_peak_bytes"], "tiles": p["tiles"],
+              "reference_s": p["reference_s"], "check_phases": p["check_phases"],
+              "setup_s": p["records"]["setup_s"], "setup_phases": p["setup_phases"],
+              "periods": p["periods"], "host": p["host"]} for p in parts]
+    for p, row in zip(parts, ranks):
+        if "trace" in p["records"]:
+            row.update(busy_s=p["records"]["trace"]["busy_s"],
+                       window_s=p["records"]["trace"]["window_s"])
+        if "spans" in p["records"]:
+            row["spans"] = {
+                path: {k: r[k] for k in ("device_s", "idle_s", "lead_median_s")}
+                for path, r in p["records"]["spans"]["paths"].items()}
     records = r0["records"]
     peaks = [p["records"]["peak_bytes"] for p in parts]
     records["peak_bytes"] = None if None in peaks else max(peaks)
@@ -470,11 +586,21 @@ def _mesh_result(cell: dict, bench: dict, trace: bool, precisions: Sequence[str]
                 kernels[name] = (c0 + calls, s0 + secs)
         t["kernels"] = kernels
         t["cards"] = n
-    records["ranks"] = [{"peak_bytes": p["records"]["peak_bytes"],
-                         "host_peak_bytes": p["host_peak_bytes"], "tiles": p["tiles"],
-                         "reference_s": p["reference_s"], "check_phases": p["check_phases"],
-                         "setup_s": p["records"]["setup_s"],
-                         "setup_phases": p["setup_phases"]} for p in parts]
+    if "spans" in records:
+        sp = records["spans"]
+        for path, row in sp["paths"].items():
+            for k in SPAN_SUMS:
+                row[k] = sum(p["records"]["spans"]["paths"].get(path, {}).get(k, 0.0)
+                             for p in parts)
+        sp["cards"] = n
+    records["mesh"] = _mesh_counts(parts)
+    records["ranks"] = ranks
+    device_info = dict(r0["device"], count=n, memory_peak_bytes=records["peak_bytes"])
+    if "trace" in records:
+        device_info["busy_s"] = records["trace"]["busy_s"] / n
+        device_info["window_s"] = records["trace"]["window_s"] / n
+    if r0["maxima"] is None:          # a probe's run without the check
+        return _result(cell, bench, trace, records, {}, device_info, r0["breakdown"])
     errs = check.errs_from_maxima(check.merge_maxima(p["maxima"]["state"] for p in parts))
     start_err, start_where = r0["start"]
     numbers = {"start_err": start_err, "start_field": start_where,
@@ -488,10 +614,6 @@ def _mesh_result(cell: dict, bench: dict, trace: bool, precisions: Sequence[str]
         for k, v in control.items():
             numbers[f"control.{prec}.{k}"] = v
         numbers[f"control.{prec}.correct"] = check.verdict(control, cell["limits"])
-    device_info = dict(r0["device"], count=n, memory_peak_bytes=records["peak_bytes"])
-    if "trace" in records:
-        device_info["busy_s"] = records["trace"]["busy_s"] / n
-        device_info["window_s"] = records["trace"]["window_s"] / n
     return _result(cell, bench, trace, records, numbers, device_info, r0["breakdown"])
 
 

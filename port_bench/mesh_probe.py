@@ -1,7 +1,7 @@
 """Probes of the multi-card path on the cards, beside the benchmark's cells:
 
     python3 -m port_bench.mesh_probe [--out <file>] mesh [--smoke 200] [--sizes 1000,900,800] \
-        [--runs 3] [--seconds 30] [--seeds a,b,c] [--control tf32] [--traced 0]
+        [--runs 3] [--seconds 30] [--seeds a,b,c] [--control tf32] [--traced 0] [--check 1]
     python3 -m port_bench.mesh_probe [--out <file>] tiles [--size 200] [--reach 96]
 
 ``mesh`` runs arc_block's package (``configs/arc_block.json``) on a 2x2
@@ -15,8 +15,13 @@ and the next is tried; a size that runs gets `--runs` runs on distinct
 seeds, the first with the `--control` precision followed in the port's
 place.  Each run prints one JSON line: `correct`, the numbers compared,
 the metrics, each card's peak and each rank's host peak, the set-up,
-period and check seconds and the run's wall seconds; each size a line
-with the spread of `gridpoints_per_s`.
+period and check seconds and the run's wall seconds, each rank's own and
+barrier seconds of every period, what its threads did over the window
+(`port_bench.host`) and the mesh's counts; each size a line with the
+spread of `gridpoints_per_s`.  With ``--check 0`` the ranks stop after
+the window (a spread's runs: the check runs after the window and moves
+none of its numbers).  The first line describes the host: its cores, its
+NUMA nodes, the cards' topology and the cgroup's CPU limit.
 
 ``tiles`` runs on one card: the reference's follow of a `--size` square
 domain in the ringed tiles of a 2x2 mesh's blocks (`port_bench.tiles`)
@@ -67,11 +72,12 @@ def _spread(values) -> dict:
 
 
 def _runs(bench, size: int, seeds, seconds: float, control, out: Optional[str],
-          trace: bool = False) -> list:
+          trace: bool = False, check: bool = True) -> list:
     """Runs of the 2x2 cell at `size` on `seeds` (the first with the
     control), each printed; their `gridpoints_per_s`, or None where one
     failed (its error printed).  With `trace`, profiled runs: each prints
-    the joined trace (card-seconds), the phases and the breakdown."""
+    the joined trace (card-seconds), the phases, the breakdown, the spans,
+    the mesh's counts and each rank's own."""
     from port_bench import harness
     cell = _cell(size)
     gps = []
@@ -80,7 +86,8 @@ def _runs(bench, size: int, seeds, seconds: float, control, out: Optional[str],
         try:
             res = harness.measure(cell, bench, seed, seconds, trace,
                                   [f"cuda:{r}" for r in range(4)], t0,
-                                  precisions=(control,) if i == 0 and control else ())
+                                  precisions=(control,) if i == 0 and control else (),
+                                  check=check)
         except Exception as err:    # a size that does not run: recorded, the next tried
             _out({"size": size, "seed": seed, "run": i, "failed": True,
                   "wall_s": time.perf_counter() - t0,
@@ -89,18 +96,22 @@ def _runs(bench, size: int, seeds, seconds: float, control, out: Optional[str],
             return None
         rec, num = res["records"], res["numbers"]
         if trace:
-            _out({"size": size, "seed": seed, "traced": True, "correct": res["correct"],
+            kernels = rec["trace"]["kernels"]
+            _out({"size": size, "seed": seed, "traced": True,
+                  "correct": res["correct"], "metrics": res["metrics"],
                   "device": res["device"], "breakdown": res.get("breakdown"),
                   "trace": {k: v for k, v in rec["trace"].items() if k != "kernels"},
-                  "phases": rec["phases"], "ranks": rec["ranks"],
-                  "state_err": num["state_err"]}, out)
+                  "nccl_s": {k: v for k, v in kernels.items() if k.startswith("nccl")},
+                  "phases": rec["phases"], "spans": rec.get("spans"), "mesh": rec["mesh"],
+                  "ranks": rec["ranks"], "state_err": num.get("state_err"),
+                  "wall_s": time.perf_counter() - t0}, out)
             continue
         _out({"size": size, "seed": seed, "run": i, "correct": res["correct"],
               "wall_s": time.perf_counter() - t0, "metrics": res["metrics"],
               "device": res["device"],
               "numbers": {k: v for k, v in num.items() if k != "top_fields"},
-              "top_fields": num["top_fields"], "window": rec["window"],
-              "ranks": rec["ranks"], "state_bytes": rec["state_bytes"],
+              "top_fields": num.get("top_fields"), "window": rec["window"],
+              "mesh": rec["mesh"], "ranks": rec["ranks"], "state_bytes": rec["state_bytes"],
               "probe_host_peak_bytes": _host_peak()}, out)
         gps.append(res["metrics"]["gridpoints_per_s"]["value"])
     return gps
@@ -114,22 +125,56 @@ def mesh(args) -> int:
         return 3
     bench = spec.benchmark()
     seeds = [int(s) for s in args.seeds.split(",")]
+    _out(_host_line(), args.out)
     if args.smoke:
         # a short run at a small size first: a fault of the path shows in seconds
         _runs(bench, args.smoke, seeds[-1:], 0.0, None, args.out)
     ran = None
     for size in (int(s) for s in args.sizes.split(",")):
-        gps = _runs(bench, size, seeds[:args.runs], args.seconds, args.control, args.out)
+        gps = _runs(bench, size, seeds[:args.runs], args.seconds, args.control, args.out,
+                    check=bool(args.check))
         if gps is not None:
             _out({"size": size, "gridpoints_per_s": _spread(gps) if len(gps) > 2 else gps},
                  args.out)
             ran = size
             if args.traced:
                 _runs(bench, size, seeds[args.runs:args.runs + args.traced], args.seconds,
-                      None, args.out, trace=True)
+                      None, args.out, trace=True, check=bool(args.check))
             break
     _out({"largest_size_run": ran, "card": torch.cuda.get_device_name(0)}, args.out)
     return 0 if ran else 1
+
+
+def _host_line() -> dict:
+    """The host's cores, NUMA nodes, the cards' topology and the cgroup's
+    CPU limit, as its tools and files give them (read only)."""
+    import subprocess
+
+    def cmd(*argv):
+        try:
+            return subprocess.run(argv, capture_output=True, text=True, timeout=30).stdout
+        except (OSError, subprocess.SubprocessError) as err:
+            return f"({argv[0]}: {err})"
+
+    def text(path):
+        try:
+            with open(path) as f:
+                return f.read().strip()
+        except OSError:
+            return None
+
+    return {"host": True, "cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)),
+            "cgroup_cpu_max": text("/sys/fs/cgroup/cpu.max"),
+            "numa_nodes": text("/sys/devices/system/node/online"),
+            "lscpu": [line for line in cmd("lscpu").splitlines()
+                      if line.split(":")[0].strip() in
+                      ("CPU(s)", "On-line CPU(s) list", "Thread(s) per core", "Core(s) per socket",
+                       "Socket(s)", "NUMA node(s)", "Model name", "CPU MHz", "CPU max MHz")
+                      or line.startswith("NUMA node")],
+            "topo": cmd("nvidia-smi", "topo", "-m"),
+            "gpus": cmd("nvidia-smi", "--query-gpu=index,name,pci.bus_id,power.limit,clocks.sm",
+                        "--format=csv,noheader")}
 
 
 def _host_peak() -> int:
@@ -224,6 +269,8 @@ def main(argv=None) -> int:
     m.add_argument("--control", default="tf32", help="'' for none")
     m.add_argument("--traced", type=int, default=0,
                    help="profiled runs after the spread's, on the seeds after theirs")
+    m.add_argument("--check", type=int, choices=(0, 1), default=1,
+                   help="0: the ranks stop after the window")
     t = sub.add_parser("tiles")
     t.add_argument("--size", type=int, default=200)
     t.add_argument("--reach", type=int, default=96)

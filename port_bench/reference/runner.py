@@ -24,14 +24,22 @@ import torch
 from port_bench.reference.wrf.chem.driver import chem_driver
 from port_bench.reference.wrf.config import namelist
 from port_bench.reference.wrf.dycore.solve import step as dyn_step
-from port_bench.reference.wrf.models import ideal
+from port_bench.reference.wrf.grid import make_grid
+from port_bench.reference.wrf.models import ideal, soundings
 from port_bench.reference.wrf.parallel.halo import HaloOps
 from port_bench.reference.wrf.physics.driver import post_dynamics, pre_dynamics
 from port_bench.reference.wrf.physics.radiation.driver import radiation_driver
 from port_bench.reference.wrf.registry.state import advected_names
 from port_bench.reference.wrf.utils.clock import ModelClock
+from port_bench.reference.wrf.utils.device import resolve_device
 
 PRECISIONS = ("float32", "tf32", "bfloat16")
+
+# the cases whose grid `ideal.make_case` makes from a base sounding alone,
+# before their state, and that sounding
+GRID_SOUNDINGS = {"warm_bubble": "constant_n2_theta", "squall2d_x": "weisman_klemp_theta",
+                  "squall2d_y": "weisman_klemp_theta", "quarter_ss": "weisman_klemp_theta",
+                  "quiescent": "constant_n2_theta"}
 
 
 class Model:
@@ -57,6 +65,15 @@ class Model:
     def case(self, name: str, device, **kw):
         """(grid, state) of the named ideal case."""
         return ideal.make_case(self.cfg, name, device=device, **kw)
+
+    def grid(self, name: str, device):
+        """The named ideal case's grid alone, where the case makes it from
+        its base sounding before, and apart from, its state (as
+        `ideal.make_case` does); else the whole case's."""
+        sounding = GRID_SOUNDINGS.get(name)
+        if sounding is None:
+            return self.case(name, device)[0]
+        return make_grid(self.cfg, getattr(soundings, sounding)(), resolve_device(device))
 
     def _solar_time(self, t_s: np.float32):
         ts = t_s + np.float32(self._solar_off)

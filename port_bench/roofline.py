@@ -14,6 +14,7 @@ KERNEL_NAMES = {
     "advect_tracers": r"\b(stage_kernel|limited_kernel)\b",
     "mie_cheb_eval": r"\bmie_cheb_eval_kernel\b",
     "ros2_integrate": r"\bros2_kernel\b",
+    "diffuse_scalars": r"\bdiffuse_scalars_kernel\b",
 }
 
 
@@ -26,7 +27,8 @@ def share(records: dict, kernel: str):
     seconds = sum(s for name, (_, s) in t["kernels"].items() if pat.search(name))
     n_sub = counts.ros2_n_sub(records["chemdt_s"]) if records["gas_chem"] else 0
     bound = counts.kernel_bounds(records["shape"], records["scalars"], records["bins"],
-                                 n_sub, t["steps"], t["chem_calls"]).get(kernel, 0.0)
+                                 n_sub, t["steps"], t["chem_calls"],
+                                 vdiff=records.get("kvdif", 0.0) > 0.0).get(kernel, 0.0)
     if seconds <= 0 or bound <= 0:
         return None
     return 100.0 * bound / seconds

@@ -17,7 +17,7 @@ middle.
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, List, Set, Tuple
+from typing import Callable, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -179,23 +179,40 @@ def under(by_span: dict, path: str) -> dict:
     return out
 
 
-def traced_blocks(sim, period: Callable[[], None], n_periods: int, cuda: bool) -> dict:
-    """Block (a), then block (b), each of `n_periods` periods closed by a
-    synchronisation: (a) with the spans on under the profiler, reduced
-    (`reduce`); (b) with the spans on and no profiler, the spans' summary
-    (`trace.flush`).  Each with its mean period seconds."""
+def total(records: dict, paths, key: str) -> Optional[float]:
+    """`key` summed over those of `paths` that a traced run's
+    ``records["spans"]`` holds (on a mesh, seconds are the cards' sums),
+    or None where it holds none of them."""
+    rows = [records.get("spans", {}).get("paths", {}).get(p) for p in paths]
+    rows = [r for r in rows if r is not None]
+    return sum(r[key] for r in rows) if rows else None
+
+
+def traced_blocks(sim, period: Callable[[], None], n_periods: int, cuda: bool,
+                  sync: Optional[Callable[[], None]] = None) -> dict:
+    """Block (a), then block (b), each of `n_periods` periods closed by
+    `sync` (default: the device's synchronisation; on a mesh the harness's,
+    which adds a barrier): (a) with the spans on under the profiler,
+    reduced (`reduce`); (b) with the spans on and no profiler, the spans'
+    summary (`trace.flush`).  Each with its mean period seconds."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from wrfchem_arc_interactions_tpu_torch.utils import trace
+
+    sync = sync or sim.sync
 
     def periods() -> float:
         t0 = time.perf_counter()
         for _ in range(n_periods):
             period()
-            sim.sync()
+            sync()
         return (time.perf_counter() - t0) / n_periods
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    # each block starts with every queued step done, on a mesh every
+    # rank's: a rank that is still reducing would hold the others' first
+    # exchange, and the wait would read as their spans' time
+    sync()
     trace.start(sim.device)
     try:
         with profile(activities=activities) as prof:
@@ -206,6 +223,7 @@ def traced_blocks(sim, period: Callable[[], None], n_periods: int, cuda: bool) -
         trace.stop()
     reduced = reduce(events(prof), paths)
     del prof
+    sync()
     trace.start(sim.device)
     try:
         period_b = periods()

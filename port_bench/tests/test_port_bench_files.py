@@ -14,16 +14,67 @@ from port_bench import case, spec
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
+def _admitted(bench: dict, here: str = spec.HERE) -> None:
+    """The cells' chips: 1 or 4, each cell's its configuration's mesh (one
+    block a card), and at most max(1, cells // 4) cells on 4 chips."""
+    for w in bench["workloads"]:
+        cell = spec.workload(bench, w["name"], here=here)
+        assert cell["chips"] in (1, 4), w["name"]
+        my, mx = spec.mesh_shape(cell)
+        assert my * mx == cell["chips"]
+    four = sum(1 for w in bench["workloads"] if w["chips"] == 4)
+    assert four <= max(1, len(bench["workloads"]) // 4), f"{four} cells on 4 chips"
+
+
 def test_every_cell_finds_its_files():
     bench = spec.benchmark()
     for w in bench["workloads"]:
         cell = spec.workload(bench, w["name"])
         assert cell["config_spec"]["name"] == w["config"]
         assert {"start_err", "state_err"} <= set(cell["limits"])
-        assert cell["chips"] == 1
         for m in spec.metrics_for(bench, w["name"], trace=False) + \
                 spec.metrics_for(bench, w["name"], trace=True):
             assert callable(spec.reader(m["name"]))
+    _admitted(bench)
+
+
+def _with_cells(tmp_path, cells):
+    """A copy of the files with the four-card `arc_mesh` configuration (a
+    2x2 `parallel` mesh) and `cells` added: (name, configuration, chips)."""
+    here = tmp_path / "port_bench"
+    shutil.copytree(spec.HERE, here, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    cfg = json.load(open(here / "configs" / "arc_block.json"))
+    cfg["namelist"]["domain"].update(nx=1000, ny=1000)
+    cfg["namelist"]["parallel"] = {"mesh_y": 2, "mesh_x": 2}
+    json.dump(cfg, open(here / "configs" / "arc_mesh.json", "w"))
+    bench = spec.benchmark()
+    bench["configs"].append(dict(bench["configs"][0], name="arc_mesh",
+                                 file="port_bench/configs/arc_mesh.json"))
+    for name, config, chips in cells:
+        shutil.copy(here / "limits" / "arc_block.main.json", here / "limits" / f"{name}.json")
+        bench["workloads"].append({"name": name, "config": config, "traffic": "alarm_periods",
+                                   "chips": chips, "why": "test"})
+    return bench, str(here)
+
+
+@pytest.mark.parametrize("cells, admitted", [
+    ([("arc_mesh.main", "arc_mesh", 4)], True),
+    ([("arc_block.four", "arc_block", 4)], False),
+    ([("arc_mesh.main", "arc_mesh", 4), ("arc_mesh.more", "arc_mesh", 4)]
+     + [(f"arc_block.c{i}", "arc_block", 1) for i in range(4)], False),
+    ([("arc_mesh.main", "arc_mesh", 4), ("arc_mesh.more", "arc_mesh", 4)]
+     + [(f"arc_block.c{i}", "arc_block", 1) for i in range(5)], True),
+], ids=["mesh_2x2_on_4", "4_chips_on_1x1", "second_4_of_7", "second_4_of_8"])
+def test_a_cell_of_several_cards_is_admitted_by_its_mesh(tmp_path, cells, admitted):
+    """A cell on 4 chips whose configuration is a 2x2 mesh is admitted by
+    files alone; 4 chips on a 1x1 mesh are not; a second cell on 4 chips
+    needs 8 cells in all (arc_block.main among them)."""
+    bench, here = _with_cells(tmp_path, cells)
+    if admitted:
+        _admitted(bench, here)
+    else:
+        with pytest.raises((AssertionError, ValueError)):
+            _admitted(bench, here)
 
 
 def test_benchmark_json_form():

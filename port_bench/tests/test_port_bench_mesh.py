@@ -318,6 +318,7 @@ def test_traced_parts_join_into_card_seconds():
     cell = _mesh_cell(bench, name="arc_block.main")
     cell["name"] = "arc_block.main"          # the cell the per-layer metrics name
     busy, wall, k4 = [0.9, 0.8, 0.85, 0.95], [1.0, 1.01, 0.99, 1.0], [0.2, 0.25, 0.22, 0.21]
+    main = [0.5, 0.52, 0.49, 0.51]
     parts = []
     for r in range(4):
         trace = {"window_s": wall[r], "busy_s": busy[r], "launches": 1000 + r,
@@ -330,12 +331,21 @@ def test_traced_parts_join_into_card_seconds():
                                                               "rad_calls": 0, "main_s": 1.0,
                                                               "chem_s": 0.5, "rad_s": 0.0},
                    "peak_bytes": 2**30 * (r + 1), "allocator": {"num_device_alloc": r},
-                   "main_peak_bytes": 2**29 * (4 - r)}
+                   "main_peak_bytes": 2**29 * (4 - r),
+                   "spans": {"steps": 10, "chem_calls": 1, "rad_calls": 0, "cards": 1,
+                             "paths": {"main": {"device_s": main[r], "self_s": 0.0,
+                                                "calls": 10, "steps": 10,
+                                                "lead_median_s": 0.001,
+                                                "launches": 900 + r, "kernel_s": 0.0,
+                                                "idle_s": 0.01 * r}}}}
         parts.append({"records": records, "breakdown": {"device_ops": trace["device_ops"],
                                                         "idle_gaps": trace["idle_gaps"]},
                       "start": (0.0, "t"), "maxima": {"state": {"t": (0.0, 1.0, True, True)}},
                       "tiles": 1, "reference_s": 1.0, "host_peak_bytes": 1,
                       "check_phases": {}, "setup_phases": {},
+                      "periods": [{"steps": 10, "own_s": 1.0, "barrier_s": 0.0,
+                                   "exchanges": 40, "bytes_sent": 1000 * (r + 1)}] * 2,
+                      "host": {"cores": 8},
                       "device": {"platform": "gpu", "kind": "card", "count": 1,
                                  "memory_peak_bytes": None, "power_limit_w": 700.0}})
     res = harness._mesh_result(cell, bench, True, (), parts)
@@ -353,6 +363,76 @@ def test_traced_parts_join_into_card_seconds():
     assert m["launches_per_step"] == 100.0 and m["main_peak_gib"] == 2.0
     assert res["breakdown"]["device_ops"] == [["op0", 0.1]]
     assert res["correct"] is True and res["numbers"]["state_err"] == 0.0
+    # the spans: seconds summed over the cards, read as their mean;
+    # launches rank 0's; each rank's own under `ranks`
+    records = res["records"]
+    assert m["main_span_ms"] == pytest.approx(1e3 * sum(main) / 4 / 10)
+    assert m["main_launches_per_step"] == 90.0
+    assert records["spans"]["paths"]["main"]["idle_s"] == pytest.approx(0.06)
+    assert [r["spans"]["main"]["device_s"] for r in records["ranks"]] == main
+    assert [r["busy_s"] for r in records["ranks"]] == busy
+    # the mesh's counts per step: each rank's, summed, each period's sum
+    mesh = records["mesh"]
+    assert mesh["exchanges_per_step"] == 16.0
+    assert mesh["bytes_sent_per_step"] == 1000.0
+    assert [r["bytes_sent_per_step"] for r in mesh["ranks"]] == [100.0, 200.0, 300.0, 400.0]
+    assert mesh["periods"] == [{"steps": 10, "exchanges": 160, "bytes_sent": 10_000}] * 2
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["window", "traced"])
+def test_the_mesh_counts_and_spans_of_four_ranks(trace):
+    """Four gloo ranks without the check (the mesh probe's runs): each
+    rank's exchanges and bytes sent are the same in every period of the
+    window and never 0; with --trace 1 every rank runs the spans' blocks,
+    which join into card-seconds (rank 0's launches, each rank's own under
+    ``ranks``)."""
+    cell = _short(_mesh_cell(spec.benchmark()))
+    cell["traffic"] = dict(cell["traffic"], max_periods=4)
+    res = harness.measure(cell, spec.benchmark(), SEED, 1e9 if not trace else 0.0, trace,
+                          CPU4, time.perf_counter(), check=False)
+    assert res["correct"] is None and res["numbers"] == {} and res["checks"] == {}
+    records = res["records"]
+    mesh = records["mesh"]
+    periods = mesh["periods"]
+    assert len(periods) == (2 if trace else 4)     # traced: the profiled and the phases'
+    assert all(p == periods[0] for p in periods) and periods[0]["steps"] == 2
+    for r in mesh["ranks"]:
+        assert r["exchanges_per_step"] > 0 and r["bytes_sent_per_step"] > 0
+    assert mesh["exchanges_per_step"] == pytest.approx(
+        sum(r["exchanges_per_step"] for r in mesh["ranks"]))
+    assert mesh["exchanges_per_step"] == periods[0]["exchanges"] / 2
+    for rank in records["ranks"]:
+        assert len(rank["periods"]) == len(periods)
+        assert rank["host"]["cores"] >= 1 and rank["host"]["cpu_s"] > 0
+    if not trace:
+        assert "spans" not in records
+        return
+    sp = records["spans"]
+    assert sp["cards"] == 4 and sp["steps"] == 2
+    assert sp["paths"]["main"]["device_s"] == pytest.approx(
+        sum(r["spans"]["main"]["device_s"] for r in records["ranks"]))
+    assert res["attempted"] == 2 + 2 + 2 * 2
+
+
+def test_the_check_of_ranks_1_to_3_builds_the_grid_alone():
+    """`Model.grid`, which ranks 1 to 3 build in place of the whole case,
+    is the case's grid tensor for tensor."""
+    from port_bench import case
+    from port_bench.reference.runner import GRID_SOUNDINGS, Model
+    from port_bench.reference.wrf.config import namelist
+    cs = spec.workload(spec.benchmark(), "arc_block.main")["config_spec"]
+    cs["namelist"]["domain"].update(SHAPE)
+    model = Model(case.build_config(namelist, cs))
+    assert cs["case"] in GRID_SOUNDINGS
+    whole, _ = model.case(cs["case"], "cpu", **cs["case_args"])
+    alone = model.grid(cs["case"], "cpu")
+    assert vars(whole).keys() == vars(alone).keys()
+    for k, v in vars(whole).items():
+        w = getattr(alone, k)
+        if isinstance(v, torch.Tensor):
+            assert v.dtype == w.dtype and torch.equal(v, w), k
+        else:
+            assert v == w, k
 
 
 def test_plan_keeps_tiles_within_the_columns():

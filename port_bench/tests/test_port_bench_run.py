@@ -45,18 +45,56 @@ def test_sound_run_is_correct_and_its_line_has_the_keys(tmp_path, seed):
     json.dumps(line)
 
 
-def test_traced_run_line(tmp_path):
-    res = _run(tmp_path, "arc_block.main", trace=True)
+@pytest.fixture(scope="module")
+def traced(tmp_path_factory):
+    """One traced run of arc_block.main at SHAPE."""
+    return _run(tmp_path_factory.mktemp("traced"), "arc_block.main", trace=True)
+
+
+def test_traced_run_line(traced):
+    res = traced
     assert res["correct"] is True
     line = {k: v for k, v in res.items() if k not in ("records", "numbers")}
     assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "breakdown",
                           "checks"]
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
-    assert {"main_step_ms", "chem_call_ms"} <= set(line["metrics"])
-    # no device on the CPU: nothing for the device's metrics to read
-    assert "idle_pct" not in line["metrics"] and "advect_tracers_roofline" not in line["metrics"]
-    assert line["attempted"] == 20
+    assert {"main_step_ms", "chem_call_ms", "main_span_ms", "dycore_span_ms",
+            "physics_span_ms", "chem_span_ms"} <= set(line["metrics"])
+    # no device on the CPU: nothing for the device's metrics to read (the
+    # launches are the host's calls into the CUDA runtime)
+    for name in ("idle_pct", "advect_tracers_roofline", "diffuse_scalars_roofline",
+                 "main_launches_per_step", "chem_launches_per_call"):
+        assert name not in line["metrics"]
+    # the profiled and the phase-timed period, then the spans' two blocks
+    assert line["attempted"] == 40
+    # the check follows the phase-timed period's last steps, as without the spans
+    assert res["records"]["phases"]["steps"] == 10
+
+
+def test_traced_run_records_the_spans(traced):
+    """``records["spans"]``: a block's steps and calls, and per span path
+    its device seconds, calls, steps, host lead, launches and idle
+    seconds, from which the span metrics read; no mesh on one card."""
+    records, m = traced["records"], traced["metrics"]
+    sp = records["spans"]
+    assert (sp["steps"], sp["chem_calls"], sp["rad_calls"], sp["cards"]) == (10, 1, 0, 1)
+    assert len(sp["period_s"]) == 2 and min(sp["period_s"]) > 0
+    paths = sp["paths"]
+    assert {"step", "main", "main/dycore", "main/dycore/stage/acoustic", "main/pre_physics",
+            "main/post_physics", "main/pre_physics/diffusion/pass", "chem",
+            "chem/row_block"} <= set(paths)
+    for row in paths.values():
+        assert set(row) == {"device_s", "self_s", "calls", "steps", "lead_median_s",
+                            "launches", "kernel_s", "idle_s"}
+    assert paths["main"]["calls"] == paths["main"]["steps"] == 10
+    assert paths["main/dycore/stage"]["calls"] == 30 and paths["chem"]["calls"] == 1
+    assert 0 < paths["main/dycore"]["device_s"] <= paths["main"]["device_s"]
+    assert m["main_span_ms"]["value"] == pytest.approx(1e2 * paths["main"]["device_s"])
+    assert m["chem_span_ms"]["value"] == pytest.approx(1e3 * paths["chem"]["device_s"])
+    assert m["physics_span_ms"]["value"] == pytest.approx(
+        1e2 * (paths["main/pre_physics"]["device_s"] + paths["main/post_physics"]["device_s"]))
+    assert "mesh" not in records
 
 
 def test_bfloat16_control_fails_the_check(tmp_path):
