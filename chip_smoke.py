@@ -220,7 +220,12 @@ REPLACES = {
     "advect_tracers": "wrfchem_arc_interactions_tpu/ops/pallas_adv_multi.py:281",
     "ros2_integrate": "wrfchem_arc_interactions_tpu/ops/pallas_ros2.py:230",
     "diffuse_scalars": "none: wrfchem_arc_interactions_tpu/dycore/diffusion.py is plain jnp",
+    "advance_w": "none: the JAX package's implicit solve (wrfchem_arc_interactions_tpu/dycore/"
+                 "small_step.py) is plain jnp with a lax.scan Thomas solve",
 }
+# acoustic substeps a step at time_step_sound 4 (1 + 2 + 4 over the RK
+# stages): one advance_w launch each
+SUBSTEPS_PER_STEP = 7
 # ros2_integrate's CUDA source is generated at run time by this module
 ROS2_SOURCE = f"{PKG}/ops/ros2_kernel.py"
 RAD_CHEM_EVERY = 100          # radt_s = chemdt_s = 600 s at dt = 6 s
@@ -635,6 +640,76 @@ def kernel_diffusion(dev, card, nz=60, ny=500, nx=500, nts=(18, 17), passes=(5, 
     e = _entry("diffuse_scalars", 0, max(v["max_abs_err"] for v in per.values()), a["ms"],
                a["plain_ms"], (a["bound_ms"], a["bound_by"]))
     e.update({"shape": [nts[0], nz, ny + 6, nx + 6], "per_pass": per, "per_step": step})
+    return e
+
+
+def _advance_w_bound(nz, ny, nx, damp_profile, msf, terrain):
+    """advance_w: w, ph, rw, rph, om, dphdn_ref, eps_w and the damping
+    profile at w levels, th, coef_pt, s, p_now at mass levels, mu, inv_mu
+    (msft, inv_msft on a projected grid, the surface row over terrain) and
+    rdn_w read once, w and ph written once; ~45 float operations and a
+    division a w-level cell."""
+    cells_w, cells, plane = (nz + 1) * ny * nx, nz * ny * nx, ny * nx
+    nbytes = 4 * ((9 + int(damp_profile)) * cells_w + 4 * cells
+                  + (2 + 2 * int(msf) + int(terrain)) * plane + nz + 1)
+    return _bound(nbytes, 46 * cells_w)
+
+
+def advance_w_on_path(step, label, card):
+    """The acoustic substep's implicit update on a path: its launches over
+    one main step (`step` runs it; one a substep), and on the first
+    substep's own inputs the kernel against its plain version, bitwise,
+    each timed (the kernel alone between events, the plain version's
+    device time as the profiler sums it and its synchronised host wall)
+    beside the kernel's bound and launch plan.  Returns the kernel's
+    entry."""
+    from wrfchem_arc_interactions_tpu_torch.ops import advance_w_kernel as ak, build
+    real = ak.advance_w
+    first = []
+
+    def recording(*args):
+        if not first:
+            first.append(args)
+        return real(*args)
+
+    # the wrapper counts its launch on the module's `advance_w`, which is
+    # this function while the step runs
+    recording.launches = 0
+    ak.advance_w = recording
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        ak.advance_w = real
+    launches = recording.launches
+    real.launches += launches
+    if launches != SUBSTEPS_PER_STEP:
+        raise RuntimeError(f"advance_w on {label}: {launches} launches in one main step, "
+                           f"expected {SUBSTEPS_PER_STEP} (one a substep)")
+    args = first[0]
+    w, ac, wsfc = args[0], args[8], args[11]
+    out, ref = ak.advance_w(*args), ak.advance_w_reference(*args)
+    torch.cuda.synchronize()
+    max_abs = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+        raise RuntimeError(f"advance_w on {label}'s inputs {tuple(w.shape)}: max|d| {max_abs}, "
+                           "not bitwise equal")
+    del out, ref
+    nz, ny, nx = w.shape[0] - 1, *w.shape[1:]
+    ms = _device_ms(lambda: ak.advance_w(*args), calls=5, trials=20)
+    plain = _profiled_ms(lambda: ak.advance_w_reference(*args))
+    plain_wall = _wall_ms(lambda: ak.advance_w_reference(*args), reps=5)
+    bound = _advance_w_bound(nz, ny, nx, ac["w_damp"].numel() > 1, "msft" in ac,
+                             wsfc is not None)
+    grid = ak.plan(build.load("advance_w"), nz, ny * nx)
+    print(f"advance_w on {label}'s first substep ({nz + 1}, {ny}, {nx}): bitwise its plain "
+          f"version; {ms:.4f} ms a launch, {100.0 * bound[0] / ms:.1f}% of its "
+          f"{bound[0]:.4f} ms bound ({bound[1]}); plain {plain:.3f} ms of device time, "
+          f"{plain_wall:.3f} ms of host wall; {launches} launches in one main step; "
+          f"{_flags('advance_w')}; grid {grid} [{card}]")
+    e = _entry("advance_w", launches, max_abs, ms, plain, bound)
+    e.update({"shape": [nz + 1, ny, nx], "plain_wall_ms": plain_wall, "plan": grid,
+              "launches_per_step": launches})
     return e
 
 
@@ -3119,6 +3194,7 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     from wrfchem_arc_interactions_tpu_torch.chem.driver import row_blocks
     from wrfchem_arc_interactions_tpu_torch.models import ideal
     from wrfchem_arc_interactions_tpu_torch.models.driver import Simulation
+    from wrfchem_arc_interactions_tpu_torch.ops import advance_w_kernel as ak
     from wrfchem_arc_interactions_tpu_torch.ops import diffusion_kernel as dk
     from wrfchem_arc_interactions_tpu_torch.registry.state import advected_names
     from wrfchem_arc_interactions_tpu_torch.utils.device import pass_slices
@@ -3147,6 +3223,7 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     warm_s = time.perf_counter() - t0
     _reset_counts()
     diff0 = dk.diffuse_scalars.launches
+    aw0 = ak.advance_w.launches
     alloc0 = torch.cuda.memory_stats(dev)
     t0 = time.perf_counter()
     sim.advance(steps)              # steps 2..21: chem at 10 and 20
@@ -3158,6 +3235,10 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     if diff_launches != diff_passes * steps:
         raise RuntimeError(f"{label}: {diff_launches} diffusion launches in the {steps}-step "
                            f"window, expected {diff_passes} a step")
+    aw_launches = ak.advance_w.launches - aw0
+    if aw_launches != SUBSTEPS_PER_STEP * steps:
+        raise RuntimeError(f"{label}: {aw_launches} advance_w launches in the {steps}-step "
+                           f"window, expected {SUBSTEPS_PER_STEP} a step")
     alloc = _allocator_counts(alloc0, torch.cuda.memory_stats(dev))
     peak_window = torch.cuda.max_memory_allocated(dev)
     peak_reserved = torch.cuda.max_memory_reserved(dev)
@@ -3182,7 +3263,8 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
           f"{o3[0]:.5f}-{o3[1]:.5f} ppmv, OLR {olr[0]:.1f}-{olr[1]:.1f} W m-2, tau_aer_sw "
           f"{float(sim.state['tau_aer_sw'].min()):.4g}-"
           f"{float(sim.state['tau_aer_sw'].max()):.4g}; kernel launches {launches}, "
-          f"diffuse_scalars {diff_launches} ({diff_passes} passes a step)")
+          f"diffuse_scalars {diff_launches} ({diff_passes} passes a step), advance_w "
+          f"{aw_launches}")
 
     t_now = np.float32(sim.time_s)
     execs = {}
@@ -3217,6 +3299,8 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
     if dycore["calls"] != {"advect_scalar_5_3": 3, "advect_tracers": 3}:
         raise RuntimeError(f"{label}: {dycore['calls']} kernel calls in one main step, "
                            "expected 3 and 3")
+    acoustic = advance_w_on_path(lambda: main(sim.state, sim.grid, t_now), label, card)
+    torch.cuda.empty_cache()
     chem_k = chem_on_path(lambda: chem(sim.state, sim.grid, t_now), label, card,
                           ros2_chunk=ROS2_CHUNK12)
     if len(chem_k["mie_bins"]) != 4 * blocks or len(chem_k["ros2"]) != blocks:
@@ -3248,7 +3332,8 @@ def config5_block_phase(dev, card, steps=WINDOW12, shape=CONFIG5_BLOCK, window=W
                "width_window": list(window),
                "width_fields_written": {k: len(v) for k, v in written.items()},
                "restart": restart,
-               "launches": launches, "diffusion_launches": diff_launches}
+               "launches": launches, "diffusion_launches": diff_launches,
+               "advance_w_on_path": acoustic, "advance_w_launches": aw_launches}
     del sim
     return launches, numbers
 
@@ -3402,9 +3487,10 @@ def _tracer_grids_us(rows) -> str:
     return ", ".join(p for _, p in sorted(parts)) or "not found in the profile"
 
 
-def profile_phase(sim, dev, ms_step):
-    """Device time by kernel over 2 main steps and one chem call, and one
-    Thomas solve."""
+def profile_phase(sim, dev, ms_step, card):
+    """Device time by kernel over 2 main steps and one chem call, one
+    Thomas solve, and the acoustic update's kernel on the path
+    (`advance_w_on_path`).  Returns the kernel's entry."""
     from wrfchem_arc_interactions_tpu_torch.dycore.tridiag import thomas
     sim.sync()
     t0 = time.perf_counter()
@@ -3438,8 +3524,10 @@ def profile_phase(sim, dev, ms_step):
     th_wall = _wall_ms(lambda: thomas(a, b, cc, dd))
     th_dev = _device_ms(lambda: thomas(a, b, cc, dd), calls=1, trials=5, warmup=1)
     print(f"thomas ({nz1}, {ny}, {nx}): host wall {th_wall:.3f} ms per solve, device "
-          f"{th_dev:.3f} ms; 7 solves per step = {100.0 * 7 * th_wall / ms_step:.1f}% "
-          f"of the step's wall time")
+          f"{th_dev:.3f} ms; {SUBSTEPS_PER_STEP} solves per step would be "
+          f"{100.0 * SUBSTEPS_PER_STEP * th_wall / ms_step:.1f}% of the step's wall time "
+          f"(the acoustic substeps solve through advance_w)")
+    return advance_w_on_path(lambda: sim.advance(1), "config 3", card)
 
 
 def cross_check(dev, cfg, seed, label, emissions=None, case="squall2d_x",
@@ -3549,7 +3637,7 @@ def main(argv=None) -> int:
 
     sim, launches3, ms_step = slice_phase(cfg, grid, state, dev, args.steps, card)
     launches1 = slice1_phase(dev, card)
-    profile_phase(sim, dev, ms_step)
+    acoustic3 = profile_phase(sim, dev, ms_step, card)
     cross_check(dev, _cfg3(nx=32, ny=8, nz=20, every_s=6.0,
                            start_date="2000-06-20_12:00:00"), _seed, "config 3")
     del sim, grid, state
@@ -3662,6 +3750,11 @@ def main(argv=None) -> int:
     # the diffusion kernel's launches: config 5's block's window (6 passes a step)
     diffusion["launches"] = numbers12["diffusion_launches"]
     entries["diffuse_scalars"] = diffusion
+    # the acoustic update's: config 5's block's window (7 a step); timed on
+    # the block's first substep, and on config 3's
+    entries["advance_w"] = dict(numbers12["advance_w_on_path"],
+                                launches=numbers12["advance_w_launches"],
+                                config3=acoustic3)
     print(json.dumps({"slice6": numbers6, "slice7": numbers7, "slice8": numbers8,
                       "slice9": numbers9, "slice10": numbers10, "slice11": numbers11,
                       **numbers_items}))

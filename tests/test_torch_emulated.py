@@ -33,7 +33,13 @@ to its plain PyTorch version:
 - ``csrc/diffuse_scalars.cu`` inside `diffusion_tendencies` on a squall-line
   case, with and without the vertical term and the 6th-order filter, on
   slices of 1, 3 and 18 scalars, with K from the Smagorinsky closure and
-  from the TKE closure, on a domain whose tiles end ragged in x and y.
+  from the TKE closure, on a domain whose tiles end ragged in x and y;
+- ``csrc/advance_w.cu`` inside `solve.step`, on every acoustic substep's
+  own inputs: on a flat grid with and without the damping profile, over
+  terrain (the kinematic surface row), with a map factor and with both, at
+  11, 51 and 61 w-levels, on column counts that end ragged against its
+  blocks of 32; and on a block cut from a domain against the same columns
+  of the whole.
 
 ``csrc/mie_cheb_eval.cu`` is built with multiply-add contraction
 (``-ffp-contract=fast``, as ``ops/build.py`` builds it without
@@ -66,9 +72,13 @@ from wrfchem_arc_interactions_tpu_torch import config as tcfg  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.chem import gas as tgas  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind, KMOpt  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.dycore import diffusion as tdiff  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.dycore import solve as tsolve  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.grid import projection as tproj  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.models import ideal as tideal  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.models import real as treal  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.ops import (  # noqa: E402
-    adv_kernel, build, diffusion_kernel, mie_kernel, ros2_kernel, tracers_kernel,
+    adv_kernel, advance_w_kernel, build, diffusion_kernel, mie_kernel, ros2_kernel,
+    tracers_kernel,
 )
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.mesh import Mesh  # noqa: E402
@@ -694,12 +704,158 @@ def test_emulated_diffusion_kernel_plans(diffusion_lib):
     assert (p["threads"], p["tile_x"], p["tile_y"], p["blocks"]) == (256, 32, 16, 1)
 
 
+@pytest.fixture(scope="module")
+def advance_w_lib(tmp_path_factory):
+    with open(build._source("advance_w")) as f:
+        return _emulated(f.read(), "advance_w", str(tmp_path_factory.mktemp("emu")))
+
+
+def _acoustic_case(kind, nz, ny, nx):
+    """(cfg, grid, state, halo, dt) of a small case whose acoustic loop
+    exercises `kind`: "flat" (the squall line with a perturbed flow, damp_opt
+    3's damping profile), "flat_nodamp" (the same without it: w_damp is one
+    value), "msf" (a warm bubble on a Lambert grid), "terrain" (flow over a
+    300-m hill) or "terrain_msf" (a real case over 1,000-m terrain on a
+    Lambert grid, specified boundaries)."""
+    dyn = {"damp_opt": 0} if kind == "flat_nodamp" else {}
+    if kind in ("flat", "flat_nodamp", "terrain"):
+        cfg = tcfg.Config(domain=tcfg.DomainConfig(nx=nx, ny=ny, nz=nz, dx=1000.0, dy=1000.0,
+                                                   ztop=17000.0, p_top=8000.0),
+                          time_control=tcfg.TimeControl(dt=6.0),
+                          dynamics=tcfg.DynamicsConfig(kvdif=30.0, **dyn))
+        if kind == "terrain":
+            grid, state = tideal.make_case(cfg, "hill2d_x", device="cpu", hm=300.0,
+                                           a_half=4000.0, u0=10.0)
+        else:
+            grid, state = tideal.make_case(cfg, "squall2d_x", device="cpu", bubble_amp=3.0)
+            rng = np.random.default_rng(nz)
+            state = dict(state)
+            for k, amp in (("u", 2.0), ("v", 2.0), ("w", 0.5)):
+                state[k] = state[k] + _t(amp * rng.normal(size=tuple(state[k].shape)))
+        return cfg, grid, state, HaloOps(), 6.0
+    b = {"bc_x": BCKind.SPECIFIED, "bc_y": BCKind.SPECIFIED} if kind == "terrain_msf" else {}
+    cfg = tcfg.Config(domain=tcfg.DomainConfig(nx=nx, ny=ny, nz=nz, dx=12e3, dy=12e3,
+                                               ztop=16000.0, p_top=10000.0),
+                      time_control=tcfg.TimeControl(dt=60.0),
+                      dynamics=tcfg.DynamicsConfig(kvdif=0.0, time_step_sound=6, epssm=0.3,
+                                                   **b))
+    lambert = tproj.Projection(kind="lambert", ref_lat=40.0)
+    if kind == "msf":
+        grid = tideal.make_grid(cfg, tideal.soundings.constant_n2_theta(), "cpu",
+                                projection=lambert)
+        state = tideal.warm_bubble(cfg, grid, amplitude=2.0, zc=1500.0, xr=40e3, zr=1200.0,
+                                   three_d=True)
+        return cfg, grid, state, HaloOps(), 60.0
+    snaps = treal.synthetic_analysis(cfg, [0.0], terrain_amp=1000.0)
+    grid, state, _ = treal.real_init(cfg, snaps, projection=lambert, device="cpu")
+    return cfg, grid, state, HaloOps(BCKind.SPECIFIED, BCKind.SPECIFIED), 60.0
+
+
+def _emulated_advance_w(lib, w, ph, th, mu, om, p_now, rw, rph, ac, dtau, epssm, wsfc=None):
+    """The emulated kernel's (w, ph) into NaN-filled outputs."""
+    advance_w_kernel._check(w, ph, th, mu, om, p_now, rw, rph, ac, wsfc)
+    w_out, ph_out = torch.full_like(w, float("nan")), torch.full_like(ph, float("nan"))
+    assert advance_w_kernel.launch(lib, w, ph, th, mu, om, p_now, rw, rph, ac, dtau, epssm,
+                                   wsfc, w_out, ph_out, None) == 0
+    return w_out, ph_out
+
+
+def _step_through_emulated(lib, monkeypatch, kind, nz, ny, nx):
+    """One `solve.step` of the case with every substep's update run by the
+    emulated kernel and by the plain version on the same inputs; the step
+    goes on with the plain version's result.  Returns each call's inputs
+    and whether the two agreed bit for bit."""
+    cfg, grid, state, hx, dt = _acoustic_case(kind, nz, ny, nx)
+    calls = []
+
+    def both(*args):
+        out = _emulated_advance_w(lib, *args)
+        ref = advance_w_kernel.advance_w_reference(*args)
+        calls.append((args, torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+                      ref))
+        return ref
+
+    monkeypatch.setattr(advance_w_kernel, "advance_w", both)
+    tsolve.step(state, grid, cfg, hx, dt)
+    return cfg, grid, calls
+
+
+# (kind, nz, ny, nx): 11, 51 and 61 w-levels; 63, 15, 60, 192 and 140
+# columns, so that every case's last block of 32 columns is ragged but the
+# 192 columns' (6 whole blocks)
+ACOUSTIC_CASES = (("flat", 10, 7, 9), ("flat", 10, 3, 5), ("flat", 50, 7, 9),
+                  ("flat", 60, 7, 9), ("flat_nodamp", 10, 7, 9), ("terrain", 10, 4, 15),
+                  ("msf", 8, 12, 16), ("terrain_msf", 8, 10, 14))
+
+
+@pytest.mark.parametrize("kind,nz,ny,nx", ACOUSTIC_CASES)
+def test_emulated_advance_w_is_bitwise_its_plain_version(advance_w_lib, monkeypatch, kind, nz,
+                                                         ny, nx):
+    """Every acoustic substep of one `solve.step`: the emulated kernel
+    bitwise as the plain version on the substep's own inputs, with the
+    case's surface row, map factor and damping profile."""
+    cfg, grid, calls = _step_through_emulated(advance_w_lib, monkeypatch, kind, nz, ny, nx)
+    assert len(calls) == (1 + 2 + 4 if cfg.dynamics.time_step_sound == 4 else 1 + 3 + 6)
+    assert all(ok for _, ok, _ in calls), [ok for _, ok, _ in calls]
+    args, _, (w_new, _) = calls[-1]
+    ac, wsfc = args[8], args[11]
+    assert (wsfc is not None) == grid.has_terrain == kind.startswith("terrain")
+    assert ("msft" in ac) == kind.endswith("msf")
+    assert (ac["w_damp"].numel() == 1) == (kind == "flat_nodamp")
+    assert float(w_new[1:].abs().max()) > 0.0
+    if wsfc is not None:
+        assert float(wsfc.abs().max()) > 0.0 and torch.equal(w_new[0], wsfc)
+    else:
+        assert float(w_new[0].abs().max()) == 0.0
+
+
+def test_emulated_advance_w_on_a_block_is_the_whole_domain_s_columns(advance_w_lib,
+                                                                      monkeypatch):
+    """The update is column-local: on a block cut from the domain (as a
+    process mesh cuts it; terrain and a map factor) the emulated kernel
+    gives the whole domain's result on those columns bit for bit."""
+    _, grid, calls = _step_through_emulated(advance_w_lib, monkeypatch, "terrain_msf", 8, 10,
+                                            14)
+    args, ok, (w_ref, ph_ref) = calls[-1]
+    assert ok
+    ny, nx = grid.ny, grid.nx
+    rows, cols = slice(3, 8), slice(5, 12)
+
+    def cut(t):
+        if isinstance(t, torch.Tensor) and tuple(t.shape[-2:]) == (ny, nx):
+            return t[..., rows, cols].contiguous()
+        return t
+
+    block = [cut(a) for a in args]
+    block[8] = {k: cut(v) for k, v in args[8].items()}
+    w_blk, ph_blk = _emulated_advance_w(advance_w_lib, *block)
+    assert torch.equal(w_blk, w_ref[:, rows, cols])
+    assert torch.equal(ph_blk, ph_ref[:, rows, cols])
+
+
+def test_emulated_advance_w_plan_and_level_limit(advance_w_lib):
+    """Blocks of one warp, 3 x (nz+1) floats a thread of shared memory: at
+    config 5's block 7,813 blocks of 23,424 bytes, 9 an SM (the stand-in
+    counts threads and shared memory only); a column of more w-levels than
+    a block's 227 KB hold (605) is refused, 605 are taken."""
+    p = advance_w_kernel.plan(advance_w_lib, 60, 500 * 500)
+    assert (p["threads"], p["blocks"], p["shared_bytes"], p["blocks_per_sm"]) == (
+        32, 7813, 23424, 9)
+    fn = advance_w_lib.advance_w
+    fn.argtypes = advance_w_kernel._ARGTYPES
+    fn.restype = ctypes.c_int
+    null = [None] * 8 + [0] + [None] * 12
+    assert fn(*null, 605, 1, 1, *[0.0] * 6, None) == 1          # cudaErrorInvalidValue
+    assert fn(*null, 0, 1, 1, *[0.0] * 6, None) == 1
+    assert advance_w_kernel.plan(advance_w_lib, 604, 1)["shared_bytes"] == 232320
+
+
 def test_kernel_flags_enter_the_library_name(monkeypatch):
     """The Mie evaluator is built with multiply-add contraction, every other
     kernel without; a library built with other flags has another name, so
     it is never loaded in place of the right one."""
     assert "--fmad=false" not in build.nvcc_flags("mie_cheb_eval")
-    for name in ("advect_scalar_5_3", "advect_tracers", "diffuse_scalars"):
+    for name in ("advect_scalar_5_3", "advect_tracers", "diffuse_scalars", "advance_w"):
         assert "--fmad=false" in build.nvcc_flags(name)
     paths = {name: build.lib_path(name) for name in build.SOURCES}
     monkeypatch.setitem(build.DROPPED_FLAGS, "mie_cheb_eval", ())

@@ -6,7 +6,8 @@ Perturbations X'' are relative to the RK-stage reference state; per substep:
 EOS linearisation with divergence damping, forward U'' V'' update, column
 mass and omega'' by vertical integration, forward Theta'', and the implicit
 W''-phi'' tridiagonal solve with off-centering beta (epssm) and implicit
-Rayleigh damping.  Single device.
+Rayleigh damping (`ops/advance_w_kernel.py::advance_w`: one kernel launch a
+substep on the card).  Single device.
 
 Over terrain the forward momentum update carries the sloped-coordinate
 term -eps d(phb)/dx d(p'')/d(eta), and the surface row of the implicit
@@ -24,11 +25,10 @@ from typing import Dict, Tuple
 import torch
 
 from wrfchem_arc_interactions_tpu_torch.dycore.diagnostics import ddz_center
-from wrfchem_arc_interactions_tpu_torch.dycore.tridiag import thomas
 from wrfchem_arc_interactions_tpu_torch.grid import Grid
+from wrfchem_arc_interactions_tpu_torch.ops import advance_w_kernel
 from wrfchem_arc_interactions_tpu_torch.ops.stencil import column_sum, win
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import overlap_stencil
-from wrfchem_arc_interactions_tpu_torch.utils.constants import G
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -44,7 +44,6 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
     """
     dyn = cfg.dynamics
     beta = dyn.epssm
-    bp, bm = 0.5 * (1.0 + beta), 0.5 * (1.0 - beta)
     smdiv = dyn.smdiv
     # external-mode filter: -nu * grad(dmu_ac) of the previous substep
     emdiv = dyn.emdiv
@@ -54,15 +53,10 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
 
     coef_pt = ac["coef_pt"]
     s = ac["s"]
-    inv_mu = ac["inv_mu"]
-    eps_w = ac["eps_w"]
-    rdn_w = ac["rdn_w"]
-    dphdn_ref = ac["dphdn_ref"]
 
     # map factors (real projections)
     msf = "msft" in ac
     m_t = ac.get("msft")
-    inv_m = ac["inv_msft"][None] if msf else 1.0
     m2 = (m_t * m_t) if msf else None
 
     def p_of2(th_pp, ph_pp):
@@ -75,6 +69,11 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
     rv_avg = torch.zeros_like(v)
     ww_avg = torch.zeros_like(w)
     mudf = torch.zeros_like(mu)
+
+    # the implicit update's stage inputs, contiguous as its kernel takes
+    # them (a nest's child on a mesh holds its fields in (y, z, x) order)
+    ac_w = {k: ac[k].contiguous() for k in advance_w_kernel.STAGE_KEYS if k in ac}
+    rw, rph = R["rw"].contiguous(), R["rph"].contiguous()
 
     th_x_w, th_x_e = ac["th_x"][:, :, :-1], ac["th_x"][:, :, 1:]
     th_y_s, th_y_n = ac["th_y"][:, :-1, :], ac["th_y"][:, 1:, :]
@@ -173,47 +172,13 @@ def acoustic_loop(pp: Tensors, R: Tensors, ac: Tensors, ns: int, dtau: float,
         dth = R["rth"] - (dd["hdiv_th"] + (fz[1:] - fz[:-1]) * rdnw)
         th = th + dtau * dth
 
-        # --- implicit W''-phi'' -------------------------------------------
-        a_w = dtau * G * bp * inv_mu
-        gw_m = (G * m_t * inv_mu)[None] if msf else G * inv_mu[None]
-        ph_exp_t = (R["rph"] - om * dphdn_ref * inv_mu[None]
-                    + gw_m * bm * w)
-        ph_exp = ph + dtau * ph_exp_t
-        ph_exp[0] = ph[0]                                 # phi''_sfc frozen
-
-        p_theta = coef_pt * th
-        p_exp = p_theta + s * (ph_exp[1:] - ph_exp[:-1])
-        # p'' = 0 above the lid: "up" arrays padded with zero at k = nz
-        zero2d = torch.zeros_like(p_exp[:1])
-        p_exp_up = torch.cat([p_exp, zero2d], dim=0)
-        p_exp_dn = torch.cat([zero2d, p_exp], dim=0)
-        p_old_up = torch.cat([p_now, zero2d], dim=0)
-        p_old_dn = torch.cat([zero2d, p_now], dim=0)
-        s_up = torch.cat([s, torch.zeros_like(s[:1])], dim=0)
-        s_dn = torch.cat([torch.zeros_like(s[:1]), s], dim=0)
-
-        dpdn_exp = rdn_w * (p_exp_up - p_exp_dn)
-        dpdn_old = rdn_w * (p_old_up - p_old_dn)
-
-        K = dtau * G * eps_w * bp * rdn_w * a_w[None]
-        A = -K * s_dn
-        C = -K * s_up
-        B = 1.0 + K * (s_up + s_dn) + dtau * ac["w_damp"]
-        D = (w + dtau * (R["rw"]
-                         + (G * inv_m) * eps_w * (bp * dpdn_exp + bm * dpdn_old)
-                         - (G * inv_m) * mu[None]))
+        # --- implicit W''-phi'' (one kernel launch on the card) -------------
         # surface row: flat => W'' = 0; terrain => the kinematic BC with the
         # new acoustic winds (reference part + perturbation-wind part)
-        A[0] = 0.0
-        C[0] = 0.0
-        B[0] = 1.0
-        if grid.has_terrain:
-            D[0] = ac["wsfc_const"] + dd["wsfc_pp"]
-        else:
-            D[0] = 0.0
-        w = thomas(A, B, C, D)
-        ph = ph_exp + (a_w * m_t if msf else a_w)[None] * w
-        ph[0] = ph_exp[0]
+        wsfc = (ac["wsfc_const"] + dd["wsfc_pp"]).contiguous() if grid.has_terrain else None
+        w, ph = advance_w_kernel.advance_w(
+            w.contiguous(), ph.contiguous(), th.contiguous(), mu.contiguous(), om,
+            p_now.contiguous(), rw, rph, ac_w, dtau, beta, wsfc)
 
         # --- averaged mass fluxes for scalar advection --------------------
         ru_avg = ru_avg + (ac["ru_ref"] + u) * (1.0 / ns)

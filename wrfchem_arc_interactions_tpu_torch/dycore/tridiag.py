@@ -3,8 +3,10 @@ the JAX package's `dycore/tridiag.py`).
 
 The reference scans over z with ``lax.scan``; here the scan is a Python
 loop over k, each step vectorised over all (ny, nx) columns.  That is
-about 2*nz small launches per solve on the GPU — correct, but launch-bound;
-a fused column kernel is a candidate for a later change (PERF.md).
+about 9 small launches a level on the GPU — correct, but launch-bound.
+The acoustic substep's solve, the one that runs every substep, is a column
+kernel (`ops/advance_w_kernel.py`), whose plain version calls this; the
+PBL schemes (`physics/pbl.py`) still solve through this loop, once a step.
 """
 
 from __future__ import annotations

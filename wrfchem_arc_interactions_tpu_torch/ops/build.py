@@ -42,7 +42,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = {"advect_scalar_5_3": "advect_scalar_5_3.cu",
            "mie_cheb_eval": "mie_cheb_eval.cu",
            "advect_tracers": "advect_tracers.cu",
-           "diffuse_scalars": "diffuse_scalars.cu"}
+           "diffuse_scalars": "diffuse_scalars.cu",
+           "advance_w": "advance_w.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
