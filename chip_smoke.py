@@ -42,8 +42,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    bitwise to it, and the scalar advection kernel bitwise against its
    plain version on the inputs of one main step (so too in phases 5, 8 and
    10);
-5. slice 1's path (radiation and chemistry off): 10 steps, 9 launches of
-   the fused advection kernel per step;
+5. slice 1's path (radiation and chemistry off): 10 steps, 3 launches of
+   the scalar advection kernel (theta's) and the three stages' grids of
+   the multi-tracer kernel (the 3 moist scalars as one stack) per step;
 6. a short profile of two config-3 steps and one chem call (device time by
    kernel, device busy share) and the time of one Thomas solve;
 7. cross-check: 3 steps of a small config 3 starting at noon UTC (both
@@ -163,9 +164,7 @@ Phases (each raises on failure, and the script then exits non-zero):
 21. item 12: the reference's slow-marked tests/test_squall_line.py on the
    card with its assertions (30 min of the 2D squall line at 60x4x24 with
    its water budget within 5e-3, 600 s of the quarter_ss supercell);
-22. item 11: the banded-matmul fluxes (`ops/mxu_adv.py`, full float32
-   library products) against the stencil fluxes within 1e-6 relative;
-23. slice-12 phase, this slice's main path (`config5_block_phase`, in a
+22. slice-12 phase, this slice's main path (`config5_block_phase`, in a
    process of its own with the allocator's expandable segments): one
    card's block of BASELINE config 5 (1000x1000x60 on a 2x2 mesh of
    cards), config 4's package at 500x500x60 with 107 scalars from noon
@@ -1485,8 +1484,8 @@ def slice1_phase(dev, card, steps=10):
     sim.sync()
     wall = time.perf_counter() - t0
     launches = _counts()
-    want = {"advect_scalar_5_3": 9 * steps, "advect_tracers": 0, "mie_cheb_eval": 0,
-            "ros2_integrate": 0}
+    want = {"advect_scalar_5_3": 3 * steps, "advect_tracers": _tracer_grids_per_step() * steps,
+            "mie_cheb_eval": 0, "ros2_integrate": 0}
     if launches != want:
         raise RuntimeError(f"slice 1's path: launches {launches}, expected {want}")
     if not all(bool(torch.isfinite(v).all()) for v in sim.state.values()):
@@ -2163,7 +2162,7 @@ def item7_cross_checks(dev):
     cross_check(dev, _cfg_small(16, 16, 16, 100.0, 0.5, 2000.0, 80000.0,
                                 dynamics=dict(km_opt="tke", h_mom_adv_order=weno,
                                               v_mom_adv_order=weno, h_sca_adv_order=weno,
-                                              v_sca_adv_order=weno, scan_tracer_min=2),
+                                              v_sca_adv_order=weno),
                                 physics=dict(sf_sfclay_physics="revised_mm5",
                                              tke_heat_flux=0.2)),
                 _les_state, "LES with TKE and WENO5", case="les", full_theta_ulp=True)
@@ -3405,45 +3404,6 @@ def item12_card_checks(dev, card):
     return {"squall_drift": drift, "squall_w_max": w_max, "quarter_ss_w_max": ss_w_max}
 
 
-def mxu_card_check(dev, card, nt=4, shape=(50, 100, 100)):
-    """Item 11 on the card: `ops/mxu_adv.py::scalar_fluxes_mxu` (library
-    products, full float32) against the stencil fluxes on the same seeded
-    padded inputs, orders 5/3, 3/3 and upwind, a batch of `nt` tracers,
-    within 1e-6 of each flux's magnitude; and the products' precision
-    setting."""
-    from wrfchem_arc_interactions_tpu_torch.dycore import advection
-    from wrfchem_arc_interactions_tpu_torch.ops import mxu_adv
-    nz, ny, nx = shape
-    rng = np.random.default_rng(11)
-    q = torch.from_numpy((rng.normal(size=(nt, nz, ny + 6, nx + 6)) + 3.0)
-                         .astype(np.float32)).to(dev)
-    ru, rv = (torch.from_numpy(rng.normal(size=(nz, ny + 6, nx + 6)).astype(np.float32))
-              .to(dev) for _ in "uv")
-    ww = rng.normal(size=(nz + 1, ny, nx)).astype(np.float32)
-    ww[0] = ww[-1] = 0.0
-    ww = torch.from_numpy(ww).to(dev)
-    precision = torch.get_float32_matmul_precision()
-    worst = {}
-    for h, v in ((5, 3), (3, 3), (1, 1)):
-        mxu = mxu_adv.scalar_fluxes_mxu(q, ru, rv, ww, h, v)
-        ref = advection.scalar_fluxes(q, ru, rv, ww, h, v)
-        rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(mxu, ref))
-        worst[f"{h}/{v}"] = rel
-        if not rel <= 1e-6:
-            raise RuntimeError(f"scalar_fluxes_mxu ({h}, {v}) on the card: {rel:.3g} of the "
-                               "fluxes' magnitude from the stencil fluxes (limit 1e-6)")
-    ms = _wall_ms(lambda: mxu_adv.scalar_fluxes_mxu(q, ru, rv, ww, 5, 3))
-    ms_stencil = _wall_ms(lambda: advection.scalar_fluxes(q, ru, rv, ww, 5, 3))
-    print(f"item 11, scalar_fluxes_mxu on the card at ({nt}, {nz}, {ny}, {nx}) against the "
-          f"stencil fluxes: max relative difference "
-          + ", ".join(f"{k} {e:.3g}" for k, e in worst.items())
-          + f" (limit 1e-6); float32 matmul precision '{precision}' outside, 'highest' "
-          f"inside; synchronised {ms:.3f} ms per call at 5/3, the stencil {ms_stencil:.3f} "
-          f"ms [{card}]")
-    return {"max_rel": worst, "matmul_precision": precision, "ms": ms,
-            "stencil_ms": ms_stencil}
-
-
 def _profile(fn):
     """(device ms, kernel count, rows by kernel) of one profiled call."""
     from torch.autograd import DeviceType
@@ -3691,7 +3651,7 @@ def main(argv=None) -> int:
     for name, n in numbers12["dycore_on_path"]["calls"].items():
         ON_PATH[name]["config 5's block"] = n
     torch.cuda.empty_cache()
-    numbers_items = {"item12": item12_card_checks(dev, card), "item11": mxu_card_check(dev, card)}
+    numbers_items = {"item12": item12_card_checks(dev, card)}
     entries["advect_tracers"]["modes_nt47_1000_wide"] = modes_wide
     entries["advect_tracers"]["max_abs_err"] = max(
         entries["advect_tracers"]["max_abs_err"], *(m["max_abs_err"] for m in modes_wide.values()))

@@ -21,13 +21,12 @@ from wrfchem_arc_interactions_tpu import config as jcfg  # noqa: E402
 from wrfchem_arc_interactions_tpu.dycore import advection as jadv  # noqa: E402
 from wrfchem_arc_interactions_tpu.grid import make_grid as jmake_grid  # noqa: E402
 from wrfchem_arc_interactions_tpu.models import soundings  # noqa: E402
-from wrfchem_arc_interactions_tpu.ops import mxu_adv as jmxu  # noqa: E402
 from wrfchem_arc_interactions_tpu.ops import pallas_adv  # noqa: E402
 from wrfchem_arc_interactions_tpu.parallel.halo import HaloOps as JHalo  # noqa: E402
 
 from wrfchem_arc_interactions_tpu_torch.dycore import advection as tadv  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.grid import grid_from_numpy  # noqa: E402
-from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, mxu_adv  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps as THalo  # noqa: E402
 
 NZ, NY, NX = 10, 16, 24     # the shapes of tests/test_overlap_pallas.py
@@ -94,31 +93,6 @@ def test_reference_matches_advect_scalar_and_pallas(grids):
     # and it equals the port's general path at (5, 3)
     gen = tadv.advect_scalar(_t(q), _t(ru), _t(rv), _t(ww), tg, 5, 3)
     assert torch.equal(gen, out)
-
-
-@pytest.mark.parametrize("batched", [False, True])
-@pytest.mark.parametrize("orders", [(5, 3), (3, 3), (1, 1)])
-def test_scalar_fluxes_mxu(orders, batched):
-    """The banded-matmul fluxes (`ops/mxu_adv.py`) against the JAX
-    package's and against the port's stencil fluxes on the same padded
-    inputs, orders 5/3, 3/3 and upwind, with and without a batch of three
-    tracers: within 1e-6 of each flux's magnitude (float32 dot-product
-    rounding, the reference docstring's figure)."""
-    h, v = orders
-    q, ru, rv, ww = _inputs(seed=10 + h)
-    if batched:
-        q = np.stack([q, 2.0 * q - 1.0, q[:, ::-1, ::-1].copy()])
-    jf = jmxu.scalar_fluxes_mxu(jnp.asarray(q), jnp.asarray(ru), jnp.asarray(rv),
-                                jnp.asarray(ww), h, v)
-    tf = mxu_adv.scalar_fluxes_mxu(_t(q), _t(ru), _t(rv), _t(ww), h, v)
-    sf = tadv.scalar_fluxes(_t(q), _t(ru), _t(rv), _t(ww), h, v)
-    for a, b, c in zip(jf, tf, sf):
-        assert a.shape == tuple(b.shape) == tuple(c.shape)
-        assert b.dtype == torch.float32
-        assert _rel(a, b) <= 1e-6
-        assert _rel(c, b) <= 1e-6
-    assert not torch.any(tf[2][..., 0, :, :]) and not torch.any(tf[2][..., -1, :, :])
-    assert torch.get_float32_matmul_precision() == "highest"
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape_ww", "shape_ru", "rdnw",

@@ -211,16 +211,23 @@ def test_mono_limiter_no_new_extrema():
 # Diffusion: the 6th-order filter and the TKE closure
 # ---------------------------------------------------------------------------
 
+# the reference's scalar-route knobs (per-tracer loop, lax.scan or one
+# stacked pass); the port has one route and no such option
+JAX_ONLY = ("scan_tracer_min", "stack_tracer_min")
+
+
 def _case(nx=24, ny=6, nz=16, **dyn):
-    """The squall line in both packages with `dyn` set, the port's state
-    carried over from the reference's."""
+    """The squall line in both packages with `dyn` set (the keys of
+    JAX_ONLY on the reference's config only), the port's state carried over
+    from the reference's."""
     cfgs = []
     for m in (jcfg, tcfg):
         c = m.Config(domain=m.DomainConfig(nx=nx, ny=ny, nz=nz, dx=1000.0, dy=1000.0,
                                            ztop=17000.0, p_top=8000.0),
                      time_control=m.TimeControl(dt=6.0))
         cfgs.append(c.replace(dynamics=dataclasses.replace(
-            c.dynamics, **{k: type(getattr(c.dynamics, k))(v) for k, v in dyn.items()})))
+            c.dynamics, **{k: type(getattr(c.dynamics, k))(v) for k, v in dyn.items()
+                           if m is jcfg or k not in JAX_ONLY})))
     jc, tc = cfgs
     jg, js = jideal.make_case(jc, "squall2d_x", bubble_amp=3.0)
     js = {k: np.asarray(v) for k, v in js.items()}
@@ -288,15 +295,16 @@ def test_tke_closure_matches_jax():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dyn", [
-    {"moist_adv_opt": "mono", "scan_tracer_min": 2},        # the stacked path
-    {"moist_adv_opt": "mono"},                              # the per-scalar loop
+    {"moist_adv_opt": "mono", "scan_tracer_min": 2},        # the reference's scan
+    {"moist_adv_opt": "mono"},                              # the reference's loop
     {"h_sca_adv_order": 7, "h_mom_adv_order": 7, "scan_tracer_min": 2},
-], ids=["mono-stacked", "mono-loop", "weno5-stacked"])
+], ids=["mono-stacked", "mono-vs-reference-loop", "weno5-stacked"])
 def test_step_options_match_jax(dyn):
-    """One `solve.step` of the squall line with the monotonic limiter (on a
-    stack and in the per-scalar loop) and with WENO5 scalars and momentum,
-    held to the reference's step within 1e-4 of each field's magnitude (w:
-    1e-3, its float32 noise; see test_torch_slice.py)."""
+    """One `solve.step` of the squall line with the monotonic limiter and
+    with WENO5 scalars and momentum: the port's one stacked route held to
+    the reference's stacked scalars and to its per-scalar loop, within 1e-4
+    of each field's magnitude (w: 1e-3, its float32 noise; see
+    test_torch_slice.py)."""
     jc, tc, jg, tg, js, ts = _case(kvdif=30.0, **dyn)
     # a moist layer near saturation, so that qc and qr are non-trivial
     for k in ("qc", "qr"):

@@ -281,6 +281,62 @@ def test_solve_step_with_polar_filter():
     assert spec[0, k > 12].max() > 1e-3
 
 
+@pytest.mark.parametrize("mp", ["kessler", "morrison2"], ids=["kessler-3", "morrison2-12"])
+def test_polar_filter_step_matches_reference_loop(mp, monkeypatch):
+    """2 steps with fft_filter_lat = 45 on rows reaching 88N, from zonal
+    noise on theta and on every scalar, held to the reference's per-scalar
+    loop, which filters after each stage the scalars it advects next: the
+    port carries its scalars as one stack and filters that stack.  Kessler's
+    3 scalars, and Morrison's 12 with the reference's scan and stacked pass
+    switched off.  In float64 on both sides, with the kernels' plain
+    versions; both filters transform in float32, and their rounding leaves
+    ~1e-5: every field within 1e-4 of its magnitude, and theta's poleward
+    rows carry nothing above their k_max (test_solve_step_with_polar_filter's
+    limits)."""
+    nx, ny = 32, 16
+    jc, tc = _cfgs(nx=nx, ny=ny, nz=12, dx=1000.0, dt=6.0,
+                   dynamics={"fft_filter_lat": 45.0}, physics={"mp_physics": mp})
+    jc = jc.replace(dynamics=dataclasses.replace(jc.dynamics, scan_tracer_min=10 ** 6,
+                                                 stack_tracer_min=10 ** 6))
+    names = tc.moist_species()
+    assert len(names) == {"kessler": 3, "morrison2": 12}[mp]
+    jg, js = jideal.make_case(jc, "warm_bubble", amplitude=2.0)
+    lat_rows = np.linspace(0.0, 88.0, ny, dtype=np.float32)
+    jg = dataclasses.replace(jg, xlat=jnp.asarray(np.repeat(lat_rows[:, None], nx, axis=1)))
+    rng = np.random.default_rng(0)
+    js = {k: np.asarray(v) for k, v in js.items()}
+    js["t"] = (js["t"] + rng.normal(scale=0.1, size=js["t"].shape)).astype(np.float32)
+    for q in names:
+        # sparse zonal noise: the filter rings below zero and the clip acts
+        scale = 1e6 if q.startswith("n") else 1e-3
+        noise = rng.uniform(0.0, scale, js[q].shape) * (rng.uniform(size=js[q].shape) > 0.5)
+        js[q] = (js[q] + noise).astype(np.float32)
+    monkeypatch.setattr(tsolve, "advect_scalar_5_3", adv_kernel.advect_scalar_5_3_reference)
+    monkeypatch.setattr(tsolve, "advect_tracers", tracers_kernel.advect_tracers_reference)
+    with jax.enable_x64(True):
+        jg64 = jax.tree.map(lambda a: a.astype(jnp.float64) if isinstance(a, jax.Array) else a,
+                            jg)
+        jstep = jax.jit(lambda s: jsolve.step(s, jg64, jc, JHalo(), 6.0))
+        jout = {k: jnp.asarray(np.asarray(v, np.float64)) for k, v in js.items()}
+        for _ in range(2):
+            jout = jstep(jout)
+        jout = {k: np.asarray(v) for k, v in jout.items()}
+    tg64 = grid_from_numpy(_jgrid_numpy(jg64), "cpu")
+    tout = state_from_numpy({k: np.asarray(v, np.float64) for k, v in js.items()}, "cpu")
+    for _ in range(2):
+        tout = tsolve.step(tout, tg64, tc, THalo(), 6.0)
+    errs = {k: _rel(jout[k], tout[k]) for k in ("u", "v", "w", "t", "mu", "ph") + names}
+    assert max(errs.values()) <= 1e-4, errs
+    assert all(float(tout[q].min()) >= 0.0 for q in names)
+    spec = np.abs(np.fft.rfft(tout["t"].numpy(), axis=-1)).max(axis=0)
+    k = np.arange(spec.shape[1])
+    for j, lat in enumerate(lat_rows):
+        if lat > 45.0:
+            k_max = (nx / 2) * np.cos(np.deg2rad(lat)) / np.cos(np.deg2rad(45.0))
+            assert spec[j, k > k_max + 0.5].max() < 1e-3, (j, lat)
+    assert spec[0, k > 12].max() > 1e-3
+
+
 # ---------------------------------------------------------------------------
 # hill2d_x
 # ---------------------------------------------------------------------------

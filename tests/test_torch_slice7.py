@@ -114,13 +114,16 @@ def test_slice7_simulation_matches_jax():
 def _les_cfg(m, nx=12, ny=12, nz=16):
     nl = m.namelist
     weno = nl.AdvOrder.WENO5
+    # the reference stacks the scalars only from scan_tracer_min of them on;
+    # the port has one stacked route at any count
+    stack = {"scan_tracer_min": 2} if m is jcfg else {}
     return m.Config(
         domain=m.DomainConfig(nx=nx, ny=ny, nz=nz, dx=100.0, dy=100.0, ztop=2000.0,
                               p_top=80000.0),
         time_control=m.TimeControl(dt=0.5),
         dynamics=m.DynamicsConfig(km_opt=nl.KMOpt.TKE_15, h_mom_adv_order=weno,
                                   v_mom_adv_order=weno, h_sca_adv_order=weno,
-                                  v_sca_adv_order=weno, scan_tracer_min=2),
+                                  v_sca_adv_order=weno, **stack),
         physics=m.PhysicsConfig(sf_sfclay_physics=nl.SFScheme.REVISED_MM5,
                                 tke_heat_flux=0.2))
 
@@ -128,7 +131,8 @@ def _les_cfg(m, nx=12, ny=12, nz=16):
 def test_les_tke_weno5_matches_jax():
     """The LES case with the 1.5-order TKE closure, the imposed surface heat
     flux, the surface layer, and WENO5 for momentum and for the scalars,
-    which ride every stage as one stack (scan_tracer_min = 2); 4 steps."""
+    which ride every stage as one stack (the reference's with
+    scan_tracer_min = 2); 4 steps."""
     jc, tc = _les_cfg(jcfg), _les_cfg(tcfg)
     jg, js = jideal.make_case(jc, "les")
     js = {k: np.asarray(v) for k, v in js.items()}

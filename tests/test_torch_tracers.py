@@ -11,7 +11,9 @@ kernel's tile and its ring of planes (1 to 5 levels, one row, rows that do
 not fill the last tile, rows narrower and wider than a warp), and on a row
 of 1,000 cells, which the kernel splits into x tiles.  The
 wrapper's input checks, and on the CUDA card the kernel against its plain
-version at all of these shapes (skipped without one).
+version at all of these shapes (skipped without one).  The dycore's one
+route for a stack of scalars (`solve._advance_stack`) row by row equal to
+the per-scalar update of each row.
 """
 
 import dataclasses
@@ -35,8 +37,10 @@ from wrfchem_arc_interactions_tpu.models import soundings  # noqa: E402
 from wrfchem_arc_interactions_tpu.ops.pallas_adv_multi import advect_tracers_fused  # noqa: E402
 from wrfchem_arc_interactions_tpu.parallel.halo import HaloOps as JHalo  # noqa: E402
 
+from wrfchem_arc_interactions_tpu_torch.config.namelist import AdvLimiter  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.config.namelist import BCKind as TBC  # noqa: E402
-from wrfchem_arc_interactions_tpu_torch.ops import tracers_kernel  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.dycore import solve as tsolve  # noqa: E402
+from wrfchem_arc_interactions_tpu_torch.ops import adv_kernel, tracers_kernel  # noqa: E402
 from wrfchem_arc_interactions_tpu_torch.parallel.halo import HaloOps as THalo  # noqa: E402
 
 from test_torch_slice import jax_grid_to_port  # noqa: E402
@@ -184,6 +188,46 @@ def test_plain_matches_scan_body_at_tile_and_ring_shapes(case, pd):
     assert _max_rel(want, out, f["q"]) <= 1e-5
     if pd:
         assert float(out.min()) >= 0.0
+
+
+@pytest.mark.parametrize("msf", [False, True], ids=["flat", "m2"])
+@pytest.mark.parametrize("limiter", ["none", "pd", "mono"])
+def test_stack_route_equals_per_scalar_updates(grids, limiter, msf):
+    """`solve._advance_stack`, the update of every scalar stack in a step,
+    equals the per-scalar update of each of its rows bit for bit, on a
+    flat grid and with m2 = msft^2: without a limiter the scalar kernel's
+    tendency and the inline coupled update, under the PD or the monotonic
+    limiter `_plain_update` on the row alone.  The second row has no
+    physics tendency: the stack carries a row of zeros for it, a scalar
+    alone carries none."""
+    _, tg = grids
+    if msf:
+        msft = np.random.default_rng(5).uniform(0.95, 1.05, tuple(tg.mub.shape))
+        tg = dataclasses.replace(tg, msft=_t(msft), curvature=True)
+    m2 = tracers_kernel.map_factor_sq(tg)
+    f = {k: _t(v) for k, v in _inputs(tg, seed=3, nt=3).items()}
+    f["pt"][1] = 0.0
+    hx = THalo()
+    q_pad, ru, rv = (hx.pad(f[k], 3) for k in ("q", "ru", "rv"))
+    phi, pt, ww, mu_full, mu_new = (f[k] for k in ("phi", "pt", "ww", "mu_full", "mu_new"))
+    args = (ru, rv, ww, mu_full, mu_new, DTS, tg, hx, 5, 3)
+    lim = AdvLimiter(limiter)
+    stack = tsolve._advance_stack(q_pad, phi, pt, lim, *args, m2=m2)
+    assert stack.shape == f["q"].shape
+    for i in range(stack.shape[0]):
+        pt_i = None if i == 1 else pt[i]
+        if lim == AdvLimiter.NONE:
+            tend = (adv_kernel.advect_scalar_5_3(q_pad[i], ru, rv, ww, tg.rdnw, tg.rdx, tg.rdy,
+                                                 m2=m2)
+                    + mu_full[None] * (0.0 if pt_i is None else pt_i))
+            row = (phi[i] + DTS * tend) / mu_new[None]
+        else:
+            row = tsolve._plain_update(q_pad[i], phi[i], pt_i, lim, *args, m2=m2)
+        assert torch.equal(stack[i], row), i
+    if lim != AdvLimiter.NONE:      # the limiter acts on these inputs
+        free = tsolve._advance_stack(q_pad, phi, pt, AdvLimiter.NONE, *args, m2=m2)
+        assert float((free - stack).abs().max()) > 1e-3 * float(f["q"].abs().max())
+        assert float(stack.min()) >= 0.0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "phi_shape", "ww_shape", "pt_shape",

@@ -192,23 +192,6 @@ class DynamicsConfig:
     v_sca_adv_order: AdvOrder = AdvOrder.THIRD
     moist_adv_opt: AdvLimiter = AdvLimiter.POSITIVE_DEFINITE
     chem_adv_opt: AdvLimiter = AdvLimiter.POSITIVE_DEFINITE
-    # advect scalars as ONE stacked (n_tracers, nz, ny, nx) pass when at
-    # least this many are carried.  Measured on the v5e the per-tracer
-    # loop is FASTER at every tested tracer count (3 tracers: 44 vs 77 ms;
-    # 47 tracers: 44 vs 70 ms — XLA's 4D-batched stencil layouts lose more
-    # than the op-count win), so the default effectively disables stacking;
-    # the stacked path remains available (and equivalence-tested) for
-    # configs where program size matters more than step time.
-    stack_tracer_min: int = 1_000_000
-    # lax.scan over the stacked tracers: the per-tracer advection body is
-    # traced ONCE, so the HLO stays O(1) in tracer count (the 3-stage x
-    # n-tracer instantiation blowup was the 200x200 cold-compile killer)
-    # AND it measured FASTER than the unrolled loop on the v5e at 44
-    # tracers (5.7 vs 6.2 ms plain stage, 7.8 vs 10.4 ms PD stage —
-    # round-5 A/B).  Tracers carrying physics tendencies stay on the
-    # unrolled path; below this count the loop is used (scan overhead
-    # dominates at moist-only counts).
-    scan_tracer_min: int = 8
     # Canonical chem-scalar treatment (solve_em.F: chem/tracer arrays are
     # advected ONLY on the final RK3 stage, as one flux-form update from
     # the step-start value with the time-averaged acoustic mass fluxes and

@@ -9,25 +9,25 @@
       scalar advection (stage winds; final stage: time-averaged acoustic
       mass fluxes + PD limiter)
 
-The reference has three scalar paths that compute the same thing: an
-unrolled per-tracer loop below ``scan_tracer_min`` scalars, and a
-``lax.scan`` (or one stacked pass) over the stacked scalars at or above it.
-The port keeps the split.  Below it, the per-tracer loop; at or above it
-(config 3 advects 47 scalars on every stage), the scalars stay stacked as
-one (nt, nz, ny, nx) tensor for the whole step.  With the orders (5, 3)
-each stage's update of the stack is one call of the fused multi-tracer
-kernel (`ops.tracers_kernel.advect_tracers`), the positive-definite
-limiter and clip included on the final stage.  The kernel has no monotonic
-limiter (the TPU kernel has none either), so under ``moist_adv_opt=mono``
-the final stage, and with other orders every stage, is one plain batched
-pass of this module's operators over the whole stack (`_plain_update`):
-the same arithmetic per element as the reference's scan body, with a
+Scalars advance as stacks: the stage scalars (the moist set, TKE and
+every scalar with a physics tendency) as one (nt, nz, ny, nx) tensor
+carried through the three stages, and the chem scalars that advance on
+the final stage only as a second one.  The reference chooses among an
+unrolled per-tracer loop, a ``lax.scan`` and one stacked pass by the
+scalar count; all three compute the same update, and the port has one
+route at any count.  Each update of a stack is `_advance_stack`: with the
+orders (5, 3) one call of the fused multi-tracer kernel
+(`ops.tracers_kernel.advect_tracers`), the positive-definite limiter and
+clip included under that limiter.  The kernel has no monotonic limiter
+(the TPU kernel has none either), so under ``mono``, and with other
+orders on every stage, the update is one plain batched pass of this
+module's operators over the whole stack (`_plain_update`): the same
+arithmetic per element as the reference's loop and scan bodies, with a
 hundred or so launches whatever the scalar count.
 
-The tendency of theta on every stage, and of each loop scalar on the
-stages where no limiter runs, is the fused 5th/3rd-order advection kernel
-(`ops.adv_kernel.advect_scalar_5_3`) whenever the configured orders are
-(5, 3); other orders take `advection.advect_scalar`.
+The tendency of theta on every stage is the fused 5th/3rd-order advection
+kernel (`ops.adv_kernel.advect_scalar_5_3`) whenever the configured orders
+are (5, 3); other orders take `advection.advect_scalar`.
 
 Terrain and map projections: over terrain the base state rides the
 group-A padding into the pressure gradient, the geopotential tendency and
@@ -36,7 +36,9 @@ surface w); on a projected grid the coupled variables are U = mu u / m,
 W = mu w / m, and every scalar update carries m^2 on its horizontal
 divergence — the kernels take it as their ``m2`` argument.  After each
 stage's update, a global lat-lon run (``fft_filter_lat`` < 90) filters the
-poleward rows (`dycore.polar_filter`).
+poleward rows (`dycore.polar_filter`): the dynamical fields, and the
+carried scalar stack itself, so that the next stage advects the filtered
+values, as the reference's per-tracer loop does.
 
 Tensors of the incoming state are never written: new stage fields are new
 tensors, and the few in-place writes below go into tensors computed here.
@@ -133,6 +135,21 @@ def _plain_update(q_pad, phi_old, pt_q, limiter: AdvLimiter, ru_s, rv_s, ww_s,
     return qn
 
 
+def _advance_stack(q_pad, phi_old, pt_q, limiter: AdvLimiter, ru_s, rv_s, ww_s,
+                   mu_full, mu_full_new, dts, grid: Grid, hx: HaloOps, h_s: int, v_s: int,
+                   m2=None):
+    """One flux-form update of a padded scalar stack (nt, nz, ny+6, nx+6):
+    the multi-tracer kernel at the orders (5, 3) without the monotonic
+    limiter (the positive-definite limiter with its clip), else
+    `_plain_update`."""
+    if (h_s, v_s) == (5, 3) and limiter != AdvLimiter.MONOTONIC:
+        pd = limiter == AdvLimiter.POSITIVE_DEFINITE
+        return advect_tracers(q_pad, phi_old, ru_s, rv_s, ww_s, mu_full, mu_full_new, grid,
+                              hx, dts, pt=pt_q, pd=pd, clip=pd)
+    return _plain_update(q_pad, phi_old, pt_q, limiter, ru_s, rv_s, ww_s, mu_full, mu_full_new,
+                         dts, grid, hx, h_s, v_s, m2=m2)
+
+
 def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
          phys_tend: Optional[Dict[str, torch.Tensor]] = None) -> State:
     """Advance the dynamical state one dt (physics tendencies held fixed)."""
@@ -158,11 +175,6 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
 
         h_m, v_m = dyn.h_mom_adv_order.value, dyn.v_mom_adv_order.value
         h_s, v_s = dyn.h_sca_adv_order.value, dyn.v_sca_adv_order.value
-        fused_53 = (h_s, v_s) == (5, 3)
-
-        # ---- scalar batching decision (the reference's scan/stack gates) -----
-        batched = len(stage_scalars) >= min(dyn.scan_tracer_min, dyn.stack_tracer_min)
-        loop_names = () if batched else stage_scalars
 
         # ---- map-factor coupling (U = mu u / m, W = mu w / m; m2 on every
         # scalar divergence); the flat path does no extra work ----------------
@@ -174,7 +186,7 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
 
         def scalar_tend(q_pad, ru, rv, ww_):
             """-div F of an uncoupled scalar, no limiter."""
-            if fused_53:
+            if (h_s, v_s) == (5, 3):
                 return advect_scalar_5_3(q_pad, ru, rv, ww_, grid.rdnw, grid.rdx, grid.rdy,
                                          m2=m2_t)
             return adv.advect_scalar(q_pad, ru, rv, ww_, grid, h_s, v_s)
@@ -211,20 +223,18 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
             "mu": state["mu"],
             "ph": state["ph"],
         }
-        phi_old = {name: mu_full_0[None] * state[name] for name in loop_names}
         if final_scalars:
             sc_fin = torch.stack([state[q] for q in final_scalars])
             phi_fin = mu_full_0[None, None] * sc_fin
-        if batched:
-            sc_stack = torch.stack([state[q] for q in stage_scalars])
-            phi_stack = mu_full_0[None, None] * sc_stack
-            moist_idx = {q: i for i, q in enumerate(stage_scalars) if q in moist}
-            # physics tendencies are stage-invariant: stacked once per step
-            pt_stack = None
-            if any(q in pt for q in stage_scalars):
-                zeros = torch.zeros_like(state["t"])
-                pt_stack = torch.stack([torch.broadcast_to(pt[q], zeros.shape)
-                                        if q in pt else zeros for q in stage_scalars])
+        sc_stack = torch.stack([state[q] for q in stage_scalars])
+        phi_stack = mu_full_0[None, None] * sc_stack
+        moist_idx = {q: i for i, q in enumerate(stage_scalars) if q in moist}
+        # physics tendencies are stage-invariant: stacked once per step
+        pt_stack = None
+        if any(q in pt for q in stage_scalars):
+            zeros = torch.zeros_like(state["t"])
+            pt_stack = torch.stack([torch.broadcast_to(pt[q], zeros.shape)
+                                    if q in pt else zeros for q in stage_scalars])
 
         stage_state = state
         stage_dts = [dt / 3.0, dt / 2.0, dt]
@@ -241,14 +251,11 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
                     mu_full = diag.mu_full
 
                     # ---- group-A halo padding (width 3) ------------------------------
-                    fields = {
+                    gA = hx.pad_many({
                         "u": stage_state["u"], "v": stage_state["v"], "w": stage_state["w"],
                         "ph": stage_state["ph"], "t": stage_state["t"],
                         "mu": mu_full, "p": diag.p_pert, "al": diag.alpha_d, "eps": diag.eps_ratio,
-                    }
-                    for q in loop_names:
-                        fields[q] = stage_state[q]
-                    gA = hx.pad_many(fields, 3)
+                    }, 3)
                     gA.update(static)
 
                     mu_u_pad = _mu_u(gA["mu"])
@@ -432,59 +439,43 @@ def step(state: State, grid: Grid, cfg: Config, hx: HaloOps, dt: float,
                     final = istage == 2
                     if final:
                         gF = hx.pad_many({"ru": avg_flux["ru"], "rv": avg_flux["rv"]}, 3)
-                        ru_s, rv_s, ww_s = gF["ru"], gF["rv"], avg_flux["ww"]
+                        # the multi-tracer kernel takes contiguous fluxes; the average
+                        # keeps w's layout, (y, z, x) in a nest's child
+                        ru_s, rv_s, ww_s = gF["ru"], gF["rv"], avg_flux["ww"].contiguous()
                     else:
                         ru_s, rv_s, ww_s = ru_pad, rv_pad, ww
                     limiter = dyn.moist_adv_opt if final else AdvLimiter.NONE
 
-                    def update(q_pad, phi, pt_q, lim):
-                        """One flux-form update of the uncoupled scalar(s) in `q_pad`."""
-                        return _plain_update(q_pad, phi, pt_q, lim, ru_s, rv_s, ww_s, mu_full,
-                                             mu_full_new, dts, grid, hx, h_s, v_s, m2=m2_t)
+                    def advance(stack, phi, pt_q, lim):
+                        """One flux-form update of the scalar stack `stack`, the result
+                        filtered under the polar filter."""
+                        out = _advance_stack(hx.pad(stack, 3), phi, pt_q, lim, ru_s, rv_s,
+                                             ww_s, mu_full, mu_full_new, dts, grid, hx, h_s,
+                                             v_s, m2=m2_t)
+                        return out if polar is None else polar.scalar(out)
 
-                    if batched:
-                        if fused_53 and limiter != AdvLimiter.MONOTONIC:
-                            pd = limiter == AdvLimiter.POSITIVE_DEFINITE
-                            sc_stack = advect_tracers(hx.pad(sc_stack, 3), phi_stack, ru_s, rv_s,
-                                                      ww_s, mu_full, mu_full_new, grid, hx, dts,
-                                                      pt=pt_stack, pd=pd, clip=pd)
-                        else:
-                            sc_stack = update(hx.pad(sc_stack, 3), phi_stack, pt_stack, limiter)
-                        # diagnose() reads the moist subset every stage; the others
-                        # unstack once, at the end
-                        for q, i in moist_idx.items():
+                    sc_stack = advance(sc_stack, phi_stack, pt_stack, limiter)
+                    # diagnose() reads the moist subset every stage; the others
+                    # unstack once, at the end
+                    for q, i in moist_idx.items():
+                        new[q] = sc_stack[i]
+                    if final:
+                        for i, q in enumerate(stage_scalars):
                             new[q] = sc_stack[i]
-                        if final:
-                            for i, q in enumerate(stage_scalars):
-                                new[q] = sc_stack[i]
-                    for q in loop_names:
-                        if limiter == AdvLimiter.NONE:
-                            tend = (scalar_tend(gA[q], ru_s, rv_s, ww_s)
-                                    + mu_full[None] * pt.get(q, 0.0))
-                            new[q] = (phi_old[q] + dts * tend) / mu_full_new[None]
-                        else:
-                            new[q] = update(gA[q], phi_old[q], pt.get(q), limiter)
-
-                    if final and final_scalars:
-                        # chem tracers: one final-stage update from the step-start value
-                        # (their state still holds it) with the time-averaged fluxes
-                        fin_pad = hx.pad(sc_fin, 3)
-                        if fused_53 and dyn.chem_adv_opt != AdvLimiter.MONOTONIC:
-                            pd = dyn.chem_adv_opt == AdvLimiter.POSITIVE_DEFINITE
-                            fin_new = advect_tracers(fin_pad, phi_fin, ru_s, rv_s, ww_s, mu_full,
-                                                     mu_full_new, grid, hx, dts, pd=pd, clip=pd)
-                        else:
-                            fin_new = update(fin_pad, phi_fin, None, dyn.chem_adv_opt)
-                        for i, q in enumerate(final_scalars):
-                            new[q] = fin_new[i]
+                        if final_scalars:
+                            # chem tracers: one final-stage update from the step-start
+                            # value (their state still holds it) with the time-averaged
+                            # fluxes
+                            fin_new = advance(sc_fin, phi_fin, None, dyn.chem_adv_opt)
+                            for i, q in enumerate(final_scalars):
+                                new[q] = fin_new[i]
 
                     if polar is not None:
                         # global lat-lon runs: zonally truncate the poleward rows after
                         # each stage's updates (the solve_em.F pxft call sites), sharp on
-                        # the dynamical fields, tapered and clipped on the scalars
+                        # the dynamical fields, tapered and clipped on the scalar stacks
+                        # above
                         new = polar.momentum(new)
-                        for q in (scalars if final else stage_scalars):
-                            new[q] = polar.scalar(new[q])
 
                 stage_state = new
 
